@@ -1,0 +1,23 @@
+"""lightcurver_tpu_torch: the joint ROI deconvolution in PyTorch, for CUDA.
+
+A port of the numerical core of ``lightcurver_tpu`` (JAX) to PyTorch. The
+layout mirrors the JAX package (``core/``, ``core/deconv/``, ``ops/``,
+``processes/``, ``utilities/``); ``csrc/`` holds the hand-written CUDA
+kernels. Each module names its JAX counterpart in its docstring, and the
+tests hold every module against that counterpart on the CPU.
+
+The package imports torch, numpy, scipy and the standard library only:
+never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine that
+has neither.
+
+Numerics: float32 throughout, with TF32 off for matmuls and cuDNN
+(``ops.enforce_fp32``, called by every entry point).
+
+Numbers: every time quoted in this package's comments and in PERF.md was
+taken on an NVIDIA H100 and carries the card's name and power limit as
+``nvidia-smi`` reports them. No TPU figure applies to this package.
+
+Entry point: :func:`lightcurver_tpu_torch.processes.roi_modelling.fit_roi`.
+"""
+
+__version__ = "0.1.0"

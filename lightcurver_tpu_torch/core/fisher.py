@@ -1,0 +1,44 @@
+"""Exact GLS flux solve and diagonal Fisher flux errors.
+
+Twin of ``lightcurver_tpu/core/fisher.py``. The model is linear in the
+fluxes ``a``, so at fixed positions and background the per-epoch fluxes
+solve the M x M normal equations ``(B W B^T) a = B W r`` (B the unit-flux
+source images, r the data minus the flux-independent channels), and the
+diagonal Fisher information is ``sum_px B^2 / sigma^2``.
+"""
+
+import torch
+
+
+def linear_flux_solve(kwargs, data, sigma_2, model):
+    """kwargs with ``a`` replaced by the per-epoch GLS solution.
+
+    Pixels where the data or sigma_2 is not finite get zero weight.
+    """
+    basis = model.point_source_basis(kwargs)                # (N, M, n, n)
+    baseline = model.background_only(kwargs)                # (N, n, n)
+    w = torch.where(torch.isfinite(sigma_2) & torch.isfinite(data),
+                    1.0 / sigma_2, torch.zeros_like(sigma_2))
+    r = torch.nan_to_num(data - baseline)
+    bw = basis * w[:, None, :, :]
+    gram = torch.einsum("nmyx,nkyx->nmk", bw, torch.nan_to_num(basis))
+    rhs = torch.einsum("nmyx,nyx->nm", bw, r)
+    # degenerate (fully masked) epochs stay solvable
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype,
+                    device=gram.device) * 1e-12
+    a = torch.linalg.solve(gram + eye, rhs[..., None])[..., 0]
+    return {
+        **kwargs,
+        "kwargs_analytic": {
+            **kwargs["kwargs_analytic"],
+            "a": a.reshape(kwargs["kwargs_analytic"]["a"].shape),
+        },
+    }
+
+
+def get_flux_uncertainties(kwargs, noisemap, model):
+    """1-sigma errors of ``a``, flat in ``a``'s layout (e * M + j)."""
+    sigma_2 = noisemap**2
+    basis = model.point_source_basis(kwargs)
+    info = torch.nansum(basis**2 / sigma_2[:, None, :, :], dim=(-2, -1))
+    return (1.0 / torch.sqrt(info)).reshape(-1)

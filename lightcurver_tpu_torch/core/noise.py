@@ -1,0 +1,70 @@
+"""Monte-Carlo propagation of data noise into starlet weights W.
+
+Twin of ``lightcurver_tpu/core/noise.py``: per starlet scale and fine-grid
+pixel, the standard deviation that data noise induces on the starlet
+coefficients of the background channel. Noise realizations on the data
+grid are pushed through the adjoint of the forward operator (upsample
+transpose, then correlation with the mean PSF) and starlet-transformed;
+W is their per-coefficient standard deviation over samples (ddof 0).
+
+The MC core, :func:`mc_starlet_noise`, takes the standard-normal draws as
+a tensor, so tests can hand both packages the same numpy draws. In
+production :func:`propagate_noise` draws them from a seeded CPU
+``torch.Generator`` and moves them to the device, which makes W the same
+on every device up to rounding. The starlet over the batch of samples
+runs through ``ops.starlet_op`` (the CUDA kernel on the card).
+"""
+
+import torch
+
+from .grids import upsample_transpose
+from . import convolution as conv
+from ..ops.starlet_op import starlet_transform
+
+
+def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws):
+    """Per-coefficient std of starlet(adjoint(sigma * draws)).
+
+    Args:
+        sigma: (n, n) data-grid noise sigma; non-finite pixels contribute
+            no noise.
+        mean_ps_hat: (L, L/2+1) complex mean point-source spectrum.
+        draws: (S, n, n) standard-normal samples.
+
+    Returns:
+        (J + 1, m, m), floored at 1e-12.
+    """
+    L = conv.pad_len(m)
+    sigma = torch.where(torch.isfinite(sigma), sigma, torch.zeros_like(sigma))
+    fine = upsample_transpose(sigma * draws, s)
+    fine_hat = torch.fft.rfft2(fine, s=(L, L))
+    back = torch.fft.irfft2(fine_hat * torch.conj(mean_ps_hat),
+                            s=(L, L))[..., :m, :m]
+    coeffs = starlet_transform(back.contiguous())
+    return torch.clamp(torch.std(coeffs, dim=0, correction=0), min=1e-12)
+
+
+def epoch_nanmedian(stack):
+    """Per-pixel NaN-median over the leading (epoch) axis.
+
+    For an even count of finite values it is the mean of the two middle
+    ones, as ``jnp.nanmedian``; ``torch.nanmedian`` returns the lower one.
+    """
+    return torch.nanquantile(stack, 0.5, dim=0)
+
+
+def propagate_noise(model, noisemap, num_samples=500, seed=1):
+    """Starlet noise weights W, (J + 1, m, m), on the model's device.
+
+    ``noisemap``: (N, n, n) noise sigmas (tensor or array); the per-pixel
+    sigma is their :func:`epoch_nanmedian`.
+    """
+    noisemap = torch.as_tensor(noisemap, dtype=torch.float32,
+                               device=model.device)
+    sigma = epoch_nanmedian(noisemap)
+    gen = torch.Generator().manual_seed(int(seed))
+    draws = torch.randn((int(num_samples),) + tuple(sigma.shape),
+                        generator=gen, dtype=torch.float32).to(model.device)
+    with torch.no_grad():
+        return mc_starlet_noise(sigma, model.ps_hat.mean(dim=0), model.m,
+                                model.s, draws)
