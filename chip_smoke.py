@@ -7,20 +7,32 @@ Phases, each printing its own line; any failure exits non-zero and
 prints no result:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the CUDA starlet kernels from ``lightcurver_tpu_torch/csrc``
-   (into ``build/lightcurver_tpu_torch/``), with its time;
-3. each kernel against its plain PyTorch twin on the card at the main
+2. the build of both CUDA sources of ``lightcurver_tpu_torch/csrc``
+   (starlet K1 and fused render K2; one ``nvcc`` each, started together,
+   into ``build/lightcurver_tpu_torch/``), with their times and the
+   ``-Xptxas -v`` register and spill lines;
+3. each K1 kernel against its plain PyTorch twin on the card at the main
    path's shapes (m in {64, 128}, batch in {1, 500}), held to
    max|diff| <= 1e-5 max|input|, and timed beside the twin;
+3b. K2 forward (with and without the background channel) and backward
+   against their plain twins on the card, at ROI-100 (100 epochs, n 64)
+   and the production stamp (100 epochs, n 32), held to
+   max|diff| <= 1e-4 max|plain|, and timed beside the twins;
 4. a small scene (16 epochs, 32 px, s = 2, 4 sources, noise 0.03):
    ``fit_roi`` on the card through the kernels against ``fit_roi`` on the
    CPU through the plain twins, at the shipped recipe: fluxes within
    1 mmag, reduced chi2 within 1 %;
+4b. the same on the matmul-DFT render (``irfft_backend="matmul"``), whose
+   loss evaluations run through K2 on the card;
 5. the ROI-100 scene (100 epochs, 64 px, s = 2, 4 sources) through
    ``fit_roi`` at the shipped recipe (300 L-BFGS + 2000 AdaBelief
-   iterations, 500 noise samples): wall time, kernel launches (at least
+   iterations, 500 noise samples): wall time, K1 launches (at least
    2000 forward and 2000 adjoint), finite fluxes and errors, and a mean
-   reduced chi2 in [0.9, 1.1].
+   reduced chi2 in [0.9, 1.1];
+5b. ROI-100 again on ``irfft_backend="matmul"``: wall time, K2 launches
+   per stage (stage 2, with the background: at least 2000 forward and
+   2000 backward; stage 1: more than none of each), K1 launches, the
+   same bars, and the flux differences to phase 5's fit.
 
 Then one JSON line on the kernels and, last, the device line. There is
 no CPU path: without a card the script fails.
@@ -30,10 +42,12 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 TOL = 1e-5
+K2_TOL = 1e-4   # the JAX package's bar for its fused-render kernel
 
 
 class SmokeFailure(RuntimeError):
@@ -104,13 +118,102 @@ def phase_kernels(torch, starlet_cuda, plain):
     return records
 
 
-def fit_scene(fit_roi, config, scene, device):
+def k2_operands(torch, setup_model, scene, seed):
+    """K2's operands as the ROI fit gives them, with a random background,
+    and a random output cotangent, on the card."""
+    n_epochs, n = scene["data"].shape[0], scene["data"].shape[-1]
+    model, kw, *_ = setup_model(scene["data"], scene["sigma_2"],
+                                scene["psf"], scene["xs"], scene["ys"],
+                                scene["s"], device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    h = (0.01 * torch.randn(model.m**2, generator=gen)).cuda()
+    a = kw["kwargs_analytic"]["a"].reshape(n_epochs, model.n_sources)
+    px, py = model.source_positions(kw)
+    ops = model.fused_render_operands(a, px, py, h, model.matmul_consts())
+    return ops, torch.randn(n_epochs, n, n, generator=gen).cuda()
+
+
+def phase_k2(torch, k2_cuda, twin, setup_model, make_roi_scene):
+    """K2 vs its plain twins on the card; returns the kernels' records."""
+    records = {"fused_render_forward": {"max_abs_err": 0.0},
+               "fused_render_backward": {"max_abs_err": 0.0}}
+    for n_pix in (64, 32):
+        scene = make_roi_scene(n_epochs=100, n_pix=n_pix, s=2, n_sources=4,
+                               seed=11)
+        ops, g = k2_operands(torch, setup_model, scene, seed=n_pix)
+        for include_h in (True, False):
+            fwd_ops = ops if include_h else (*ops[:8], None, None,
+                                             *ops[10:])
+            bwd_ops = (*ops[:8], *ops[10:])
+            pairs = (
+                ("fused_render_forward",
+                 lambda: [k2_cuda.forward(*fwd_ops, include_h=include_h)],
+                 lambda: [twin.render_plain(*fwd_ops,
+                                            include_h=include_h)]),
+                ("fused_render_backward",
+                 lambda: k2_cuda.backward(g, *bwd_ops, include_h=include_h),
+                 lambda: twin.render_backward_plain(g, *bwd_ops,
+                                                    include_h=include_h)),
+            )
+            for name, kernel, plain in pairs:
+                outs = kernel()
+                torch.cuda.synchronize()
+                err = 0.0
+                for got, want in zip(outs, plain()):
+                    if want is None:
+                        continue
+                    diff = (got - want).abs().max().item()
+                    bound = K2_TOL * want.abs().max().item()
+                    check(diff <= bound, f"{name} n={n_pix} h={include_h}: "
+                          f"max|diff| {diff:.3e} > {bound:.3e}")
+                    err = max(err, diff)
+                ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 20)
+                rec = records[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if (n_pix, include_h) == (64, True):
+                    # the shape of every stage-2 iteration of ROI-100
+                    rec.update(ms=ms, plain_ms=plain_ms)
+                say("3b", f"{name} N=100 n={n_pix} include_h={include_h}: "
+                    f"max|diff| {err:.3e}; kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms")
+    return records
+
+
+def fit_scene(fit_roi, config, scene, device, irfft_backend="fft"):
     n = scene["data"].shape[-1]
     n_epochs = scene["data"].shape[0]
     return fit_roi(scene["data"], scene["sigma_2"] ** 0.5, scene["psf"],
                    scene["xs"] + (n - 1) / 2.0, scene["ys"] + (n - 1) / 2.0,
                    scene["s"], scene["fwhm"], 1.0, [0.0] * n_epochs, config,
-                   device=device)
+                   device=device, irfft_backend=irfft_backend)
+
+
+def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
+    """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
+    t0 = time.perf_counter()
+    on_card = fit_scene(fit_roi, config, scene, "cuda", backend)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = fit_scene(fit_roi, config, scene, "cpu", backend)
+    t_cpu = time.perf_counter() - t0
+    dmag = np.abs(2.5 * np.log10(on_card["fluxes"] / on_cpu["fluxes"]))
+    dchi2 = np.abs(on_card["reduced_chi2"] / on_cpu["reduced_chi2"] - 1)
+    say(phase, f"small scene, {backend}, card vs cpu: max |dmag| "
+        f"{dmag.max() * 1e3:.4f} mmag, max |dchi2|/chi2 {dchi2.max():.2e}; "
+        f"wall card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    check(dmag.max() <= 1e-3, f"small scene ({backend}): fluxes differ by "
+          "> 1 mmag")
+    check(dchi2.max() <= 0.01, f"small scene ({backend}): reduced chi2 "
+          "differs by > 1 %")
+
+
+def check_fit(np, out):
+    check(np.all(np.isfinite(out["fluxes"]))
+          and np.all(np.isfinite(out["flux_errors"])),
+          "non-finite fluxes or errors")
+    chi2 = float(np.mean(out["reduced_chi2"]))
+    check(0.9 <= chi2 <= 1.1, f"mean reduced chi2 {chi2} outside [0.9, 1.1]")
+    return chi2
 
 
 def main():
@@ -129,7 +232,10 @@ def main():
     check(Path(lightcurver_tpu_torch.__file__).resolve().parent.parent
           == HERE, "lightcurver_tpu_torch does not come from this checkout")
     from lightcurver_tpu_torch.core import starlet as plain
-    from lightcurver_tpu_torch.ops import enforce_fp32, starlet_cuda
+    from lightcurver_tpu_torch.core.deconv.model import setup_model
+    from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
+                                           fused_render, fused_render_cuda,
+                                           starlet_cuda)
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
                                                                fit_roi)
     from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
@@ -144,15 +250,22 @@ def main():
         f"device {torch.cuda.get_device_name(0)}, python "
         f"{sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    lib = starlet_cuda.build()
-    say(2, f"built {lib.relative_to(HERE)} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            say(2, line.strip())
+    def timed_build(source):
+        t0 = time.perf_counter()
+        return cuda_build.build(source), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(timed_build, (starlet_cuda.SOURCE,
+                                             fused_render_cuda.SOURCE)))
+    for lib, seconds in builds:
+        say(2, f"built {lib.relative_to(HERE)} in {seconds:.2f} s")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                say(2, line.strip())
 
     records = phase_kernels(torch, starlet_cuda, plain)
+    records.update(phase_k2(torch, fused_render_cuda, fused_render,
+                            setup_model, make_roi_scene))
 
     # noise 0.03, not the default 0.3: at 0.3 the float32 loss pins the
     # faintest epoch's flux only to ~1 mmag (0.02 sigma), so a relative
@@ -161,19 +274,8 @@ def main():
     # same change moves the fluxes by 0.13 mmag at most
     small = make_roi_scene(n_epochs=16, n_pix=32, s=2, n_sources=4, seed=3,
                            noise_sigma=0.03)
-    t0 = time.perf_counter()
-    on_card = fit_scene(fit_roi, ROI_CONFIG, small, "cuda")
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    on_cpu = fit_scene(fit_roi, ROI_CONFIG, small, "cpu")
-    t_cpu = time.perf_counter() - t0
-    dmag = np.abs(2.5 * np.log10(on_card["fluxes"] / on_cpu["fluxes"]))
-    dchi2 = np.abs(on_card["reduced_chi2"] / on_cpu["reduced_chi2"] - 1)
-    say(4, f"small scene card vs cpu: max |dmag| {dmag.max() * 1e3:.4f} "
-        f"mmag, max |dchi2|/chi2 {dchi2.max():.2e}; wall card "
-        f"{t_card:.2f} s, cpu {t_cpu:.2f} s")
-    check(dmag.max() <= 1e-3, "small scene: fluxes differ by > 1 mmag")
-    check(dchi2.max() <= 0.01, "small scene: reduced chi2 differs by > 1 %")
+    card_vs_cpu(np, fit_roi, ROI_CONFIG, small, "fft", 4)
+    card_vs_cpu(np, fit_roi, ROI_CONFIG, small, "matmul", "4b")
 
     scene = make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, seed=7)
     torch.cuda.synchronize()
@@ -183,7 +285,7 @@ def main():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_fwd, n_adj = starlet_cuda.launches.forward, starlet_cuda.launches.adjoint
-    chi2 = float(np.mean(out["reduced_chi2"]))
+    chi2 = check_fit(np, out)
     rel = out["fluxes"] / scene["a_true"] - 1
     pull = (out["fluxes"] - scene["a_true"]) / out["flux_errors"]
     say(5, f"ROI-100 fit_roi on the card: {wall:.3f} s wall (card {card}); "
@@ -195,22 +297,58 @@ def main():
         f"{np.sqrt(np.mean(pull**2)):.3f}")
     check(n_fwd >= 2000 and n_adj >= 2000,
           "the fit did not run through the starlet kernels")
-    check(np.all(np.isfinite(out["fluxes"]))
-          and np.all(np.isfinite(out["flux_errors"])),
-          "non-finite fluxes or errors")
-    check(0.9 <= chi2 <= 1.1, f"mean reduced chi2 {chi2} outside [0.9, 1.1]")
 
-    source = "lightcurver_tpu_torch/csrc/starlet.cu"
-    replaces = {
-        "starlet_forward": "lightcurver_tpu/ops/starlet_pallas.py:32",
-        "starlet_adjoint": "lightcurver_tpu/ops/starlet_op.py:43",
+    # 5b: the same scene on the matmul-DFT render, through K2
+    k2 = fused_render_cuda.launches
+    torch.cuda.synchronize()
+    starlet_cuda.launches.reset()
+    k2.reset()
+    t0 = time.perf_counter()
+    out_mm = fit_scene(fit_roi, ROI_CONFIG, scene, "cuda", "matmul")
+    torch.cuda.synchronize()
+    wall_mm = time.perf_counter() - t0
+    # stage 2 (h free) renders with the background channel, stage 1
+    # (h fixed) without; nothing else on the path launches K2
+    stage2 = (k2.forward_h, k2.backward_h)
+    stage1 = (k2.forward - k2.forward_h, k2.backward - k2.backward_h)
+    n_fwd_mm = starlet_cuda.launches.forward
+    n_adj_mm = starlet_cuda.launches.adjoint
+    chi2_mm = check_fit(np, out_mm)
+    dmag = np.abs(2.5 * np.log10(out_mm["fluxes"] / out["fluxes"]))
+    say("5b", f"ROI-100 fit_roi matmul on the card: {wall_mm:.3f} s wall "
+        f"(card {card}); K2 launches stage 1 forward {stage1[0]}, backward "
+        f"{stage1[1]}; stage 2 forward {stage2[0]}, backward {stage2[1]}; "
+        f"starlet forward {n_fwd_mm}, adjoint {n_adj_mm}; mean reduced chi2 "
+        f"{chi2_mm:.4f}")
+    say("5b", f"flux vs phase 5 (fft): median |dmag| "
+        f"{np.median(dmag) * 1e3:.4f} mmag, max {dmag.max() * 1e3:.4f} mmag")
+    check(min(stage2) >= 2000, "stage 2 did not run through K2 every "
+          "iteration")
+    check(min(stage1) > 0, "stage 1 did not run through K2")
+
+    csrc = "lightcurver_tpu_torch/csrc/"
+    kernels = {
+        "starlet_forward": ("starlet.cu",
+                            "lightcurver_tpu/ops/starlet_pallas.py:32",
+                            n_fwd),
+        "starlet_adjoint": ("starlet.cu",
+                            "lightcurver_tpu/ops/starlet_op.py:43", n_adj),
+        "fused_render_forward": (
+            "fused_render.cu",
+            "lightcurver_tpu/ops/experimental/fused_render.py:55",
+            k2.forward),
+        # the JAX kernel's VJP was planned there and never built
+        "fused_render_backward": (
+            "fused_render.cu",
+            "lightcurver_tpu/ops/experimental/fused_render.py:20",
+            k2.backward),
     }
-    launches = {"starlet_forward": n_fwd, "starlet_adjoint": n_adj}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-         "plain_ms": rec["plain_ms"]} for name, rec in records.items()]}),
+        {"name": name, "route": "cuda", "source": csrc + source,
+         "replaces": replaces, "launches": launches,
+         "max_abs_err": records[name]["max_abs_err"],
+         "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"]}
+        for name, (source, replaces, launches) in kernels.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,12 @@ Alignment: folding ``exp(+2 pi i k.c / L)`` with ``c = (m - 1) / 2`` into
 a PSF transform re-centres it at index 0, so convolving a gridded image
 is peak-aligned and the output is the corner crop ``[0:m, 0:m]``.
 
-The matmul DFT (``lightcurver_tpu/ops/dft.py``) and the all-real and
-rank-1 variants built on it are what JAX selects on the TPU only; they
-are not ported here.
+The 1-D factors below (:func:`r_kernel_fft_1d`,
+:func:`grid_center_phase_1d`, the ramps and ramp stacks) serve the
+matmul-DFT render (``ops/dft.py``, JAX's "mxu" backend, called "matmul"
+here): the all-real render of ``core/deconv/model.py`` and its fused
+kernel (``ops/fused_render.py``) take the point sources as stacked
+rank-1 factors instead of a formed spectrum.
 """
 
 import math
@@ -47,6 +50,30 @@ def r_kernel_fft(m, s, device=None, dtype=torch.float32):
     return torch.exp(-2.0 * math.pi**2 * sigma_f**2 * (fy**2 + fx**2))
 
 
+def r_kernel_fft_1d(m, s, device=None, dtype=torch.float32):
+    """Separable factors ``(ry, rx)`` of :func:`r_kernel_fft`, lengths
+    L and L // 2 + 1: ``r_kernel_fft = ry[:, None] * rx[None, :]``."""
+    del s
+    sigma_f = fwhm_to_sigma(TARGET_FWHM_FINE_PIX)
+    L = pad_len(m)
+    fy = torch.fft.fftfreq(L, device=device, dtype=dtype)
+    fx = torch.fft.rfftfreq(L, device=device, dtype=dtype)
+    c = -2.0 * math.pi**2 * sigma_f**2
+    return torch.exp(c * fy**2), torch.exp(c * fx**2)
+
+
+def grid_center_phase_1d(m, device=None, dtype=torch.float32):
+    """``(gy_re, gy_im, gx_re, gx_im)``, the separable factors of
+    :func:`grid_center_phase` = ``(gy_re + i gy_im)[:, None] *
+    (gx_re + i gx_im)``."""
+    c = (m - 1) / 2.0
+    L = pad_len(m)
+    ay = 2.0 * math.pi * torch.fft.fftfreq(L, device=device, dtype=dtype) * c
+    ax = 2.0 * math.pi * torch.fft.rfftfreq(L, device=device,
+                                            dtype=dtype) * c
+    return torch.cos(ay), torch.sin(ay), torch.cos(ax), torch.sin(ax)
+
+
 def grid_center_phase(m, device=None, dtype=torch.float32):
     """The constant phase ``exp(+2 pi i (fy + fx) c)``, ``c = (m - 1) / 2``."""
     c = (m - 1) / 2.0
@@ -76,6 +103,55 @@ def _ramp_angles(m, s, px, py, device, dtype):
     return ay, ax
 
 
+def point_source_ramps(m, s, a, px, py, ry=None, rx=None):
+    """1-D factors ``(u_re, u_im, v_re, v_im)`` of the separable ramps.
+
+    The spectrum of ``a r(. - p)`` relative to a PSF transform is
+    ``u v^T`` with ``u = a exp(-2 pi i fy s py)`` (length L) and
+    ``v = exp(-2 pi i fx s px)`` (length L // 2 + 1); a frequency axis is
+    appended to the shapes of ``a``/``px``/``py``. ``ry``/``rx`` (from
+    :func:`r_kernel_fft_1d`) fold the target Gaussian in, so the ramps
+    pair with the raw PSF spectrum.
+    """
+    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype)
+    uy = a[..., None] if ry is None else a[..., None] * ry
+    vx_c, vx_s = torch.cos(ax), torch.sin(ax)
+    if rx is not None:
+        vx_c, vx_s = rx * vx_c, rx * vx_s
+    return uy * torch.cos(ay), uy * torch.sin(ay), vx_c, vx_s
+
+
+def point_source_ramp_stacks(m, s, a, px, py, ry=None, rx=None):
+    """Stacked rank-1 factors ``(u_re, u_im, v)`` of the point sources.
+
+    Shapes (..., 2M, L), (..., 2M, L), (..., 2M, L // 2 + 1), with
+
+        spec_re = sum_c u_re[c] (x) v[c],   spec_im = sum_c u_im[c] (x) v[c]
+
+    equal to :func:`point_source_spectrum`: with ``cy + i sy`` and
+    ``cx + i sx`` the two ramps, ``u_re = [a cy, -a sy]``,
+    ``u_im = [a sy, a cy]`` and ``v = [cx, sx]``. ``ry``/``rx`` as in
+    :func:`point_source_ramps`.
+    """
+    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype)
+    cy, sy = torch.cos(ay), torch.sin(ay)                 # (..., M, L)
+    cx, sx = torch.cos(ax), torch.sin(ax)                 # (..., M, Lh)
+    uy = a[..., None] if ry is None else a[..., None] * ry
+    u_re = torch.cat([uy * cy, -uy * sy], dim=-2)
+    u_im = torch.cat([uy * sy, uy * cy], dim=-2)
+    if rx is not None:
+        cx, sx = rx * cx, rx * sx
+    return u_re, u_im, torch.cat([cx, sx], dim=-2)
+
+
+def point_source_spectrum_parts(m, s, a, px, py, ry=None, rx=None):
+    """(re, im) of the point-source spectrum as two real tensors, by two
+    contractions over the stacked axis 2M."""
+    u_re, u_im, v = point_source_ramp_stacks(m, s, a, px, py, ry=ry, rx=rx)
+    return torch.einsum("...jy,...jx->...yx", u_re, v), \
+        torch.einsum("...jy,...jx->...yx", u_im, v)
+
+
 def point_source_spectrum(m, s, a, px, py):
     """Spectrum of ``sum_j a_j r(. - p_j)`` relative to a PSF transform.
 
@@ -102,11 +178,4 @@ def point_source_spectrum(m, s, a, px, py):
         re = u_re * vx_c - u_im * vx_s
         im = u_re * vx_s + u_im * vx_c
         return torch.complex(re, im)
-    cy, sy = torch.cos(ay), torch.sin(ay)                 # (..., M, L)
-    cx, sx = torch.cos(ax), torch.sin(ax)                 # (..., M, Lh)
-    u_re = torch.cat([amps * cy, -amps * sy], dim=-2)
-    u_im = torch.cat([amps * sy, amps * cy], dim=-2)
-    v = torch.cat([cx, sx], dim=-2)
-    re = torch.einsum("...jy,...jx->...yx", u_re, v)
-    im = torch.einsum("...jy,...jx->...yx", u_im, v)
-    return torch.complex(re, im)
+    return torch.complex(*point_source_spectrum_parts(m, s, a, px, py))

@@ -10,6 +10,12 @@
           + flux uniformity: scatter of each source's flux across epochs
           + Gaussian priors on analytic parameters.
 
+``irfft_backend`` chooses the render, as ``Loss(irfft_backend=...)`` does
+in JAX: "fft" (the default) renders through cuFFT; "matmul", the port's
+name for JAX's "mxu", builds the pooled DFT matrices and the raw PSF
+spectra (``DeconvModel.matmul_consts``) and renders every evaluation
+through the all-real matmul-DFT path, whose kernel is K2.
+
 Two subgradients are chosen to match JAX at exact zeros, which is where
 stage 2 starts (h = 0): ``|x|`` has slope +1 at 0 (``torch.abs`` has 0),
 and ``max(-h, 0)`` splits the slope 0.5 / 0.5 at the tie, as
@@ -21,6 +27,7 @@ import torch
 from ..starlet import n_starlet_scales
 from ..params import merge_free
 from ..profiles import gaussian_r_kernel
+from ...ops import check_irfft_backend
 from ...ops.starlet_op import starlet_transform
 
 
@@ -49,7 +56,8 @@ class Loss:
                  regularization_strength_positivity=0.0,
                  regularization_strength_pts_source=0.0,
                  regularization_strength_flux_uniformity=0.0,
-                 W=None, prior=None, epoch_weights=None):
+                 W=None, prior=None, epoch_weights=None,
+                 irfft_backend="fft"):
         model = self.model = deconv_class
         self.params = param_class
         device, m = model.device, model.m
@@ -86,12 +94,17 @@ class Loss:
                     bump = bump + g / g.max()
                 self.pts_weights = torch.clamp(bump, max=1.0)
 
+        check_irfft_backend(irfft_backend)
+        self.consts = model.matmul_consts() if irfft_backend == "matmul" \
+            else None
+
         # a FIXED background renders the same every iteration: do it once
         self.fixed_h_render = None
         fixed_bg = param_class.fixed.get("kwargs_background", {})
         if "h" in fixed_bg:
             with torch.no_grad():
-                self.fixed_h_render = model._h_render(t(fixed_bg["h"]))
+                self.fixed_h_render = model._h_render(t(fixed_bg["h"]),
+                                                      self.consts)
 
     def loss_fn(self, free):
         """Scalar loss at the free tree (fixed values from the Params)."""
@@ -105,7 +118,7 @@ class Loss:
     def _total(self, kwargs, fixed_h_render):
         model, m = self.model, self.model.m
         w = self.epoch_w
-        modelled = model.model(kwargs, fixed_h_render)
+        modelled = model.model(kwargs, fixed_h_render, self.consts)
         res = (self.data - modelled) ** 2 / self.sigma_2
         total = 0.5 * torch.nansum(w[:, None, None] * res)
 

@@ -1,4 +1,4 @@
-"""Multi-epoch forward model of a blended region (FFT branch).
+"""Multi-epoch forward model of a blended region.
 
 Twin of ``lightcurver_tpu/core/deconv/model.py``. Per epoch ``e``:
 
@@ -14,9 +14,15 @@ kwargs for N epochs, M sources and an m x m fine grid:
     kwargs_sersic: {}
 ``a[e * M + j]`` is the flux of source j at epoch e.
 
-Only the FFT branch of the JAX model is ported: the matmul-DFT, all-real
-and rank-1 render paths are what JAX selects on the TPU alone. The PSF
-spectra are computed once, at construction, on the PSF's device.
+Two renders, as in the JAX model. Without render constants, the cuFFT
+branch (JAX's "fft" backend). With the constants of :meth:`matmul_consts`
+(JAX's "mxu" backend, which the port calls "matmul"; ``Loss`` builds
+them when asked for that backend), the all-real matmul-DFT render of
+:meth:`_model_all_real`: point sources as stacked rank-1 ramps against
+the raw PSF spectra, through the fused kernel K2 (``ops/fused_render.py``;
+hand-written CUDA on the card), or, for one source with a fixed
+background, the rank-1 modulated inverse ``ops.dft.irfft2_pool_shift_matmul``.
+The PSF spectra are computed once, at construction, on the PSF's device.
 """
 
 import numpy as np
@@ -26,6 +32,8 @@ import torch.nn.functional as F
 from ..grids import downsample
 from ..profiles import gaussian_r_kernel
 from .. import convolution as conv
+from ...ops import dft
+from ...ops.fused_render import fused_render
 
 
 def pad_psf_to(narrow_psf, m):
@@ -84,25 +92,59 @@ class DeconvModel:
             + ka["dy"][:, None]
         return px, py
 
-    def _h_render(self, h_flat):
-        """down(conv(t_e, h)) for every epoch: (N, n, n)."""
+    def spectra_real(self):
+        """Raw per-epoch PSF spectra ``{"t_re", "t_im"}``, (N, L, L/2+1)
+        float32 each (cuFFT, as the JAX ``Loss`` computes them)."""
+        t_hat = conv.psf_fft(self.psf_pad)
+        return {"t_re": t_hat.real.contiguous(),
+                "t_im": t_hat.imag.contiguous()}
+
+    def matmul_consts(self):
+        """Constants of the matmul-DFT render, on the model's device.
+
+        ``dft_mats`` (``ops.dft.make_dft_mats(2m, m, pool=s)``), the raw
+        spectra of :meth:`spectra_real`, the target kernel ``r_hat`` and
+        the centre phase ``pc + i ps``, all (L, L/2+1) float32.
+        """
         m = self.m
+        # the centre phase from its 1-D factors, as JAX's _model_all_real
+        gy_re, gy_im, gx_re, gx_im = conv.grid_center_phase_1d(m, self.device)
+        return {"dft_mats": dft.make_dft_mats(2 * m, m, pool=self.s,
+                                              device=self.device),
+                **self.spectra_real(),
+                "r_hat": conv.r_kernel_fft(m, self.s, self.device),
+                "pc": gy_re[:, None] * gx_re - gy_im[:, None] * gx_im,
+                "ps": gy_re[:, None] * gx_im + gy_im[:, None] * gx_re}
+
+    def _h_render(self, h_flat, consts=None):
+        """down(conv(t_e, h)) for every epoch: (N, n, n); with the
+        constants of :meth:`matmul_consts`, by the pooled matmul DFT."""
+        m = self.m
+        if consts is not None:
+            mats = consts["dft_mats"]
+            h_hat = dft.rfft2_pad_matmul(h_flat.reshape(m, m), mats)
+            return dft.irfft2_pool_matmul(h_hat * self.grid_hat, mats)
         L = conv.pad_len(m)
         h_hat = torch.fft.rfft2(h_flat.reshape(m, m), s=(L, L))
         return downsample(conv.render_from_fft(h_hat * self.grid_hat, m),
                           self.s)
 
-    def model(self, kwargs, fixed_h_render=None):
+    def model(self, kwargs, fixed_h_render=None, consts=None):
         """Modelled data stamps (N, n, n).
 
         ``fixed_h_render``: the precomputed :meth:`_h_render` of a FIXED
         background (``Loss`` passes it); then ``h`` is not rendered again.
+        ``consts``: those of :meth:`matmul_consts` select the all-real
+        matmul-DFT render; None the cuFFT one.
         """
         m, s, M = self.m, self.s, self.n_sources
         ka = kwargs["kwargs_analytic"]
         kb = kwargs["kwargs_background"]
         a = ka["a"].reshape(self.n_epochs, M)
         px, py = self.source_positions(kwargs)
+        if consts is not None:
+            return self._model_all_real(a, px, py, kb, consts,
+                                        fixed_h_render)
         total_hat = conv.point_source_spectrum(m, s, a, px, py) * self.ps_hat
         if fixed_h_render is None:
             L = conv.pad_len(m)
@@ -111,6 +153,50 @@ class DeconvModel:
         data = downsample(conv.render_from_fft(total_hat, m), s)
         if fixed_h_render is not None:
             data = data + fixed_h_render
+        return data + kb["mean"][:, None, None]
+
+    def fused_render_operands(self, a, px, py, h, consts):
+        """The 14 operands of K2 (``ops.fused_render``), in its order.
+
+        ``a``, ``px``, ``py``: (N, M); ``h``: the flat background, or None
+        when it is not rendered (then ``h_re``, ``h_im`` are None);
+        ``consts``: those of :meth:`matmul_consts`.
+        """
+        m, s = self.m, self.s
+        mats = consts["dft_mats"]
+        u_re, u_im, v = conv.point_source_ramp_stacks(m, s, a, px, py)
+        h_re = h_im = None
+        if h is not None:
+            h_re, h_im = dft.rfft2_pad_matmul_parts(h.reshape(m, m), mats)
+        return (u_re, u_im, v, consts["t_re"], consts["t_im"],
+                consts["r_hat"], consts["pc"], consts["ps"], h_re, h_im,
+                mats["Ayp"], mats["Byp"], mats["Cxp"], mats["Sxp"])
+
+    def _model_all_real(self, a, px, py, kb, consts, fixed_h):
+        """All-real matmul-DFT render on the raw PSF spectra.
+
+        Twin of the JAX ``_model_all_real``. Its general branch renders
+        through K2: the stacked ramps, ``t_hat * r_hat`` and, with h free,
+        ``h_hat * t_hat * (pc + i ps)``, inverted by the pooled DFT
+        matrices (JAX folds ``r_hat`` into the ramps and ``h_hat`` into
+        the spectrum first: the same sum, rounded in another order). One
+        source with a fixed background renders through the rank-1
+        modulated inverse, as in JAX, in plain torch.
+        """
+        m, s, M = self.m, self.s, self.n_sources
+        mats = consts["dft_mats"]
+        if M == 1 and fixed_h is not None:
+            ry, rx = conv.r_kernel_fft_1d(m, s, self.device)
+            u_re, u_im, v_re, v_im = conv.point_source_ramps(
+                m, s, a[:, 0], px[:, 0], py[:, 0], ry=ry, rx=rx)
+            data = dft.irfft2_pool_shift_matmul(
+                consts["t_re"], consts["t_im"], u_re, u_im, v_re, v_im, mats)
+            return data + fixed_h + kb["mean"][:, None, None]
+        h = kb["h"] if fixed_h is None else None
+        data = fused_render(*self.fused_render_operands(a, px, py, h, consts),
+                            include_h=h is not None)
+        if fixed_h is not None:
+            data = data + fixed_h
         return data + kb["mean"][:, None, None]
 
     def background_only(self, kwargs, fixed_h_render=None):

@@ -12,17 +12,20 @@ a tensor, so tests can hand both packages the same numpy draws. In
 production :func:`propagate_noise` draws them from a seeded CPU
 ``torch.Generator`` and moves them to the device, which makes W the same
 on every device up to rounding. The starlet over the batch of samples
-runs through ``ops.starlet_op`` (the CUDA kernel on the card).
+runs through ``ops.starlet_op`` (the CUDA kernel on the card). With
+``irfft_backend="matmul"`` (JAX's "mxu") the adjoint convolution runs as
+the matmul DFT of ``ops/dft.py``, as the JAX package does on that backend.
 """
 
 import torch
 
 from .grids import upsample_transpose
 from . import convolution as conv
+from ..ops import check_irfft_backend, dft
 from ..ops.starlet_op import starlet_transform
 
 
-def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws):
+def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
     """Per-coefficient std of starlet(adjoint(sigma * draws)).
 
     Args:
@@ -30,6 +33,8 @@ def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws):
             no noise.
         mean_ps_hat: (L, L/2+1) complex mean point-source spectrum.
         draws: (S, n, n) standard-normal samples.
+        dft_mats: ``ops.dft.make_dft_mats(L, m)`` to correlate by matmul
+            DFT; None for cuFFT.
 
     Returns:
         (J + 1, m, m), floored at 1e-12.
@@ -37,9 +42,14 @@ def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws):
     L = conv.pad_len(m)
     sigma = torch.where(torch.isfinite(sigma), sigma, torch.zeros_like(sigma))
     fine = upsample_transpose(sigma * draws, s)
-    fine_hat = torch.fft.rfft2(fine, s=(L, L))
-    back = torch.fft.irfft2(fine_hat * torch.conj(mean_ps_hat),
-                            s=(L, L))[..., :m, :m]
+    if dft_mats is not None:
+        back = dft.irfft2_crop_matmul(
+            dft.rfft2_pad_matmul(fine, dft_mats) * torch.conj(mean_ps_hat),
+            dft_mats)
+    else:
+        fine_hat = torch.fft.rfft2(fine, s=(L, L))
+        back = torch.fft.irfft2(fine_hat * torch.conj(mean_ps_hat),
+                                s=(L, L))[..., :m, :m]
     coeffs = starlet_transform(back.contiguous())
     return torch.clamp(torch.std(coeffs, dim=0, correction=0), min=1e-12)
 
@@ -53,18 +63,25 @@ def epoch_nanmedian(stack):
     return torch.nanquantile(stack, 0.5, dim=0)
 
 
-def propagate_noise(model, noisemap, num_samples=500, seed=1):
+def propagate_noise(model, noisemap, num_samples=500, seed=1,
+                    irfft_backend="fft"):
     """Starlet noise weights W, (J + 1, m, m), on the model's device.
 
     ``noisemap``: (N, n, n) noise sigmas (tensor or array); the per-pixel
-    sigma is their :func:`epoch_nanmedian`.
+    sigma is their :func:`epoch_nanmedian`. ``irfft_backend``: "fft" or
+    "matmul", as for ``Loss``.
     """
+    check_irfft_backend(irfft_backend)
     noisemap = torch.as_tensor(noisemap, dtype=torch.float32,
                                device=model.device)
     sigma = epoch_nanmedian(noisemap)
     gen = torch.Generator().manual_seed(int(seed))
     draws = torch.randn((int(num_samples),) + tuple(sigma.shape),
                         generator=gen, dtype=torch.float32).to(model.device)
+    mats = None
+    if irfft_backend == "matmul":
+        mats = dft.make_dft_mats(conv.pad_len(model.m), model.m,
+                                 device=model.device)
     with torch.no_grad():
         return mc_starlet_noise(sigma, model.ps_hat.mean(dim=0), model.m,
-                                model.s, draws)
+                                model.s, draws, mats)

@@ -4,10 +4,9 @@ Replaces the Pallas TPU kernel ``lightcurver_tpu/ops/starlet_pallas.py``
 (``_starlet_kernel``) and, for the adjoint, the jnp linear transpose in
 ``lightcurver_tpu/ops/starlet_op.py`` (``_bwd``).
 
-The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use into
-``build/lightcurver_tpu_torch/`` at the root of the checkout (git-ignored),
-under a name keyed by the source and the flags, and loaded with ctypes.
-Nothing is compiled or loaded when this module is imported.
+The kernels are compiled by ``nvcc`` at first use through
+``ops/cuda_build.py`` and loaded with ctypes. Nothing is compiled or
+loaded when this module is imported.
 
 Each wrapper takes a tensor of images. A CPU tensor goes to the plain twin
 in ``core/starlet.py``; a CUDA tensor launches the kernel or raises. The
@@ -18,22 +17,14 @@ the card's name and power limit; no TPU figure applies here.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from ..core import starlet as plain
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "starlet.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
-    / "lightcurver_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = cuda_build.CSRC / "starlet.cu"
 
 
 class LaunchCounts:
@@ -55,53 +46,11 @@ _smem_optin = {}
 _lock = threading.Lock()
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
-                           "toolkit to build csrc/starlet.cu")
-    return found
-
-
-def library_path():
-    """Where the shared library for the current source and flags lives."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libstarlet_{digest}.so"
-
-
-def build():
-    """Compile the kernels unless already built; returns the library path.
-
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside the library as ``.log``.
-    """
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             for name in ("starlet_forward", "starlet_adjoint"):
                 fn = getattr(lib, name)

@@ -71,7 +71,7 @@ def _copy_tree(tree):
 
 def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
             pixel_scale, angles_to_north, config, *, device,
-            noise_weights=None):
+            noise_weights=None, irfft_backend="fft"):
     """Jointly model all ROI epochs; returns fluxes, errors and diagnostics.
 
     Args:
@@ -88,6 +88,13 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         device: torch device of the fit.
         noise_weights: optional (J + 1, m, m) starlet weights W on the
             scaled data; computed from the noise when None.
+        irfft_backend: the render of both fit stages and of the noise
+            weights. "fft" (the default, JAX's default too) renders through
+            cuFFT; "matmul" is the port's name for JAX's "mxu", the backend
+            the JAX package selects on its accelerator: the all-real
+            matmul-DFT render, whose kernel K2 runs every loss evaluation
+            on the card. The GLS polish, the errors and the final chi2
+            render through cuFFT either way, as the JAX task does.
 
     Returns:
         dict with
@@ -159,7 +166,8 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
     def run_fit(kwargs_start, kwargs_fixed, method, n_iter, loss_kwargs,
                 lr, schedule):
         params = Params(kwargs_start, kwargs_fixed, kwargs_up, kwargs_down)
-        loss = Loss(data_t, model, params, var_t, **loss_kwargs)
+        loss = Loss(data_t, model, params, var_t,
+                    irfft_backend=irfft_backend, **loss_kwargs)
         optim = Optimizer(loss, params, method=method)
         optim.minimize(n_iter, init_learning_rate=lr,
                        schedule_learning_rate=schedule)
@@ -189,7 +197,8 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         kwargs_fixed_2["kwargs_analytic"]["c_y"] = t(initial_c_y)
 
     W = t(noise_weights) if noise_weights is not None else propagate_noise(
-        model, noise_t, num_samples=NOISE_SAMPLES, seed=NOISE_SEED)
+        model, noise_t, num_samples=NOISE_SAMPLES, seed=NOISE_SEED,
+        irfft_backend=irfft_backend)
     kwargs_final, optim2 = run_fit(
         kwargs_partial1, kwargs_fixed_2, "adabelief",
         config["roi_deconv_all_iters"],

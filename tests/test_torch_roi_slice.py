@@ -4,9 +4,10 @@
 (lightcurver_tpu/processes/roi_modelling.py, do_modelling_of_roi from the
 data scaling to the GLS flux polish, plus the flux errors and per-frame
 chi2 of get_fluxes_dataframe_from_model), on one scene with the JAX
-starlet weights W handed to both. Bars: fluxes within 1 mmag, reduced
-chi2 within 1 %, source positions within 0.01 px (the two L-BFGS line
-searches take different paths to the same minimum).
+starlet weights W handed to both, on each render backend: "fft", and
+the port's "matmul" against JAX's "mxu". Bars: fluxes within 1 mmag,
+reduced chi2 within 1 %, source positions within 0.01 px (the two L-BFGS
+line searches take different paths to the same minimum).
 """
 
 import subprocess
@@ -26,6 +27,7 @@ from lightcurver_tpu.core.fisher import (get_flux_uncertainties,
 from lightcurver_tpu.core.noise import propagate_noise
 from lightcurver_tpu.core.optimize import Optimizer
 from lightcurver_tpu.core.params import Params
+from lightcurver_tpu import ops as jops
 from lightcurver_tpu.processes.roi_modelling import \
     circular_aperture_photometry
 
@@ -36,7 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def _jax_fit_roi(data, noisemap, psf, xs, ys, s, seeings, pixel_scale,
-                 angles, config, W):
+                 angles, config, W, irfft_backend):
     """The JAX task body on arrays, single device, no checkpointing."""
     data, noisemap = data.copy(), noisemap.copy()
     scale = float(np.nanmax(data))
@@ -57,7 +59,8 @@ def _jax_fit_roi(data, noisemap, psf, xs, ys, s, seeings, pixel_scale,
     def run_fit(kw_start, kw_fixed, method, n_iter, loss_kwargs, lr,
                 schedule):
         params = Params(kw_start, kw_fixed, kw_up, kw_down)
-        loss = Loss(data, model, params, noisemap**2, **loss_kwargs)
+        loss = Loss(data, model, params, noisemap**2,
+                    irfft_backend=irfft_backend, **loss_kwargs)
         optim = Optimizer(loss, params, method=method)
         optim.minimize(max_iterations=n_iter, init_learning_rate=lr,
                        schedule_learning_rate=schedule)
@@ -104,7 +107,9 @@ def _jax_fit_roi(data, noisemap, psf, xs, ys, s, seeings, pixel_scale,
                 noisemap=noisemap)
 
 
-def test_fit_roi_matches_jax_composition():
+@pytest.mark.parametrize("backend,jax_backend", [("fft", "fft"),
+                                                 ("matmul", "mxu")])
+def test_fit_roi_matches_jax_composition(backend, jax_backend, monkeypatch):
     N, n, s, M = 6, 16, 2, 2
     sc = make_roi_scene(n_epochs=N, n_pix=n, s=s, n_sources=M, seed=5,
                         noise_sigma=0.3)
@@ -116,7 +121,8 @@ def test_fit_roi_matches_jax_composition():
     config = dict(troi.ROI_CONFIG, roi_deconv_translations_iters=30,
                   roi_deconv_all_iters=40)
 
-    # the JAX starlet weights, handed to both sides
+    # the JAX starlet weights on the JAX backend, handed to both sides
+    monkeypatch.setattr(jops, "_IRFFT_BACKEND", jax_backend)
     from lightcurver_tpu.core.deconv.model import setup_model as jsetup
     jm = jsetup(sc["data"], sc["sigma_2"], sc["psf"], sc["xs"], sc["ys"],
                 s)[0]
@@ -125,9 +131,10 @@ def test_fit_roi_matches_jax_composition():
                                    num_samples=500, seed=1)[0])
 
     ref = _jax_fit_roi(sc["data"], noisemap, sc["psf"], xs, ys, s, seeings,
-                       0.3, angles, config, W)
+                       0.3, angles, config, W, jax_backend)
     out = troi.fit_roi(sc["data"], noisemap, sc["psf"], xs, ys, s, seeings,
-                       0.3, angles, config, device="cpu", noise_weights=W)
+                       0.3, angles, config, device="cpu", noise_weights=W,
+                       irfft_backend=backend)
 
     assert out["fluxes"].shape == (N, M)
     dmag = 2.5 * np.log10(out["fluxes"] / ref["fluxes"])
@@ -173,6 +180,16 @@ def test_fit_roi_astrometry_options_and_starting_background(fix):
     scale = out["scale"]
     assert np.abs(h - 0.01 / scale).max() < 5 * 1.2e-4
     assert np.all(np.isfinite(out["fluxes"]))
+
+
+def test_fit_roi_refuses_an_unknown_backend():
+    """JAX's name "mxu" is "matmul" here; anything else raises."""
+    sc = make_roi_scene(n_epochs=2, n_pix=8, s=2, n_sources=1, seed=1)
+    with pytest.raises(ValueError, match="irfft_backend='mxu'"):
+        troi.fit_roi(sc["data"], np.sqrt(sc["sigma_2"]), sc["psf"],
+                     sc["xs"] + 3.5, sc["ys"] + 3.5, 2, np.full(2, 0.9), 0.3,
+                     np.zeros(2), troi.ROI_CONFIG, device="cpu",
+                     irfft_backend="mxu")
 
 
 def test_roi_config_is_the_shipped_one():
