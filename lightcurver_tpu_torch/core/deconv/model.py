@@ -237,14 +237,15 @@ class DeconvModel:
 
 def setup_model(data, sigma_2, psf, xs, ys, subsampling_factor,
                 initial_a=None, astrometric_bound=5.0, translation_bound=5.0,
-                device="cpu"):
+                device="cuda"):
     """Build a DeconvModel and its parameter trees from host arrays.
 
     Twin of the JAX ``setup_model``: ``data`` (N, n, n), ``psf``
     (N, mp, mp), ``xs``/``ys`` (M,) centre-origin data-pixel positions,
     ``initial_a`` of length N*M or M (tiled); ``sigma_2`` is unused.
     Returns ``(model, kwargs_init, kwargs_up, kwargs_down, kwargs_fixed)``
-    with float32 tensors on ``device``.
+    with float32 tensors on ``device``: the card unless the caller asks
+    for ``"cpu"``.
     """
     del sigma_2
     data = np.asarray(data)

@@ -18,46 +18,168 @@
 //   dv[c]    = sum_k dspec_re[k] u_re[c, k] + dspec_im[k] u_im[c, k]
 //   dh_hat   = sum_e dX_e * conj(t_hat_e * (pc + i ps))   (across epochs)
 //
-// What bounds it: per epoch 4 n L Lh + 2 n^2 Lh + 2 C L Lh multiply-adds
-// (10.6 M at n = 64, L = 256, C = 8; 1.1 G for 100 epochs) against one read
-// of the epoch's t_hat (264 KB): compute, on the CUDA cores, in float32.
-// TF32 tensor cores are off limits (the reduced-precision flux systematic
-// of the JAX package), so the products are fp32 FMAs.
+// What bounds the forward. Per epoch 4 n L Lh + 2 n^2 Lh multiply-adds in
+// the two products and 2 C L Lh in the spectrum: at N 100, n 64, L 256,
+// Lh 129, C 8 that is 1.00 G multiply-adds, 30 us on the CUDA cores in
+// fp32 (67 TFLOP/s). The products in 3xTF32 on the tensor cores
+// (3 x 1.90 GFLOP at 495 TFLOP/s) take 12 us. Reading every operand once
+// (30.8 MB, almost all of it t_hat) takes 9.2 us at 3.35 TB/s. So it is
+// bound by operations, and only the tensor cores bring that bound near the
+// memory floor. Plain TF32 products are off limits (the JAX package's
+// 0.15 % flux systematic of reduced-precision products): each operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi), and every product is
+// hi*hi + hi*lo + lo*hi, summed in fp32, which keeps float32 accuracy.
 //
-// What the design does about it. One epoch's complex spectrum (264 KB at
+// What the forward's design (k2_forward_rows) does about it, point by
+// point against the tile design it replaced (one block per 32 columns of
+// the half axis, fp32 FMAs, a second launch summing the tiles' shares):
+// 1. Stage 1 was load-bound: one global load of Ayp, Byp per two FMAs.
+//    Now both products run on the tensor cores, mma.sync m16n8k8 TF32
+//    with fp32 accumulators, as real products: stage 1 is [A; B] =
+//    [[Ayp, -Byp], [Byp, Ayp]] [Xr; Xi], stage 2 out = [A, -B] [Cxp; Sxp].
+//    Operands come from shared memory at conflict-free strides and are
+//    split into hi and lo in registers; a tensor-core warp holds 16 rows
+//    of A and of B for up to 9 n-tiles of 8 columns, 6 at ROI-100
+//    (register blocking: each fragment it loads feeds 6 or 12 products). Each k-step's four
+//    products are summed on the tensor cores from zero and added to the
+//    running sums on the CUDA cores, rounded to nearest: the tensor cores'
+//    own fp32 sums truncate, which over a running sum of 512 terms cost
+//    7e-6 of max|out| on an H100, against 6e-7 this way.
+// 2. Stage 2 read Cxp, Sxp from device memory in its inner loop. Now all
+//    rows of Cxp, Sxp for 64 output columns come into shared memory at
+//    once (cp.async), and stage 2 runs on the tensor cores like stage 1.
+// 3. The ragged last tile (one column of 32 at L 256). Now a block owns
+//    whole output rows (R = 64, or 32 at n <= 32): one epoch, all of k
+//    and j. The half axis is padded inside the block with zero columns to
+//    Lhp, a multiple of 8; the grid has no ragged tile.
+// 4. The partial-sum round trip (8.2 MB and a second launch). Stage 1 and
+//    stage 2 are independent per output row, so the block writes final
+//    rows of out: one launch, no scratch, no atomics, and sums in a fixed
+//    order (the same bits from run to run).
+// 5. Nothing used Hopper's hardware. Now, besides the tensor cores: X is
+//    streamed in chunks of 16 rows of k (8 for wide L), double-buffered
+//    in shared memory. Of the 20 warps, 8 build chunk c + 1 (the rank-1
+//    spectrum and its products with t_hat r_hat and the h channel, fp32
+//    on the CUDA cores) while 12 contract chunk c on the tensor cores,
+//    handing buffers over with named barriers (bar.sync / bar.arrive).
+//    12 / 8 beat 8 / 8 (fewer tiles a warp) and 12 / 4 (too few warps
+//    building) on an H100; tools/torch_k2_forward_probe.py times them.
+//    The building warps bring their raw rows of t_hat, r_hat, pc, ps,
+//    h_hat and u with cp.async one chunk ahead, the tensor-core warps
+//    their Ayp, Byp rows likewise; the chunks of k are taken from chunk e
+//    on, so blocks of other epochs read other rows of the shared planes.
+//    Waves: at n 64, L 256 a block takes 178 KB of shared memory and 640
+//    threads (96 registers each), one block per SM, and the 100 blocks
+//    of N 100 run in one wave with X built once per epoch (R 32 would
+//    build it twice, in two waves of 200 blocks).
+// What is left (tools/torch_k2_forward_probe.py times the parts on the
+// card): at ROI-100 the chunk pipeline alone (launch, the cp.async traffic
+// and the hand-overs of 16 chunks, with no building and no products)
+// takes about a third of the time; the building and the tensor-core work
+// of stage 1 each take about as long again when run alone and overlap
+// only in part; stage 2 about an eighth. Larger chunks need more shared
+// memory than the double buffers leave; sharing the epoch-independent
+// planes (r_hat, pc, ps, h_re, h_im: 66 of the 92 MB that reach the SMs
+// per call) across the blocks of a cluster, and wgmma, come next.
+//
+// The backward (k2_backward_tile): one epoch's complex spectrum (264 KB at
 // L = 256) does not fit an SM, so a block takes one epoch and one tile of
-// kTile = 32 columns of the half axis j (one column per lane) and builds
-// X[:, tile] in shared memory from u, v, t_hat, r_hat and h_hat: the
-// spectrum never reaches device memory. Stage 1 gives A + iB for the tile
-// in full (it contracts over k, which the block holds whole), stage 2 the
-// tile's share of the (n, n) output. The shares of the tiles are written
-// per tile and summed in a fixed order by a second kernel (sum_middle).
-// The backward mirrors it: a block turns G into dA, dB for its tile, then
-// dX and dspec for all k, and writes dv for its columns (complete), its
-// share of du (summed over tiles afterwards) and, with h, the epoch's
-// share of dh_hat (summed over epochs afterwards, in epoch order). No
-// float atomics anywhere: every result is the same from run to run. The
-// backward keeps G and the Cxp/Sxp tiles in the memory that dspec takes
-// over later (101 KB a block at n = 64, L = 256: two blocks per SM), and
-// each warp owns 8 contiguous rows of dX, so Ayp and Byp arrive as float4.
+// kTile = 32 columns of the half axis j (one column per lane). It turns G
+// into dA, dB for its tile, then dX and dspec for all k, and writes dv for
+// its columns (complete), its share of du (summed over tiles afterwards)
+// and, with h, the epoch's share of dh_hat (summed over epochs afterwards,
+// in epoch order, by sum_middle). No float atomics anywhere: every result
+// is the same from run to run. The backward keeps G and the Cxp/Sxp tiles
+// in the memory that dspec takes over later (101 KB a block at n = 64,
+// L = 256: two blocks per SM), and each warp owns 8 contiguous rows of dX,
+// so Ayp and Byp arrive as float4. Its products are fp32 FMAs.
 //
 // Interface: plain C, bound with ctypes. Each call runs on the caller's
-// stream, allocates nothing (the wrapper passes the scratch), does not
+// stream, allocates nothing (the wrapper passes any scratch), does not
 // synchronise, and returns cudaGetLastError() as an int.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// The backward, k2_backward_tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;           // half-axis columns per block, one per lane
+constexpr int kTile = 32;           // half-axis columns per block
 constexpr int kTileP = kTile + 1;   // row stride of buffers also read along k
 constexpr int kRows = 8;            // rows per warp and pass in the block GEMMs
 
-int fwd_smem_floats(int C, int L, int n) {
-  // u_re, u_im (C, L); v tile (C, kTile); X re, im (L, kTile); A, B (n, kTile)
-  return 2 * C * L + C * kTile + 2 * L * kTile + 2 * n * kTile;
+// The forward, k2_forward_rows<NT, R>: R = 64 or 32 output rows per block,
+// 640 threads: 12 warps on the tensor cores, 8 building X
+constexpr int kPassCols = 64;           // stage 2: output columns per pass
+constexpr int kCStride = kPassCols + 8; // = 8 mod 16: B fragments conflict-free
+constexpr int kMmaWarps = 12;
+constexpr int kBuildWarps = 8;
+constexpr int kFwdThreads = 32 * (kMmaWarps + kBuildWarps);
+constexpr int kStage2Warps = 16;        // stage 2: 8 x-tiles a row group
+constexpr int kMaxNT = 9;               // n-tiles per warp: L <= 430 at R 64
+constexpr int kPlanes = 7;              // t_re, t_im, r_hat, pc, ps, h_re, h_im
+constexpr int kSmemLimit = 227 * 1024;  // an H100 block's opt-in maximum
+
+// Layout of one forward block's shared memory, in floats. Throughout: v
+// (C, vs). Stage 1, the region after it, two buffers of each: the raw
+// chunk as cp.async brings it for the building warps (the kPlanes planes'
+// rows k0 ... k0 + kc, one span each, and u_re, u_im (C, kc)); X re, im
+// (kc, xs), fp32; the chunk's Ayp, Byp rows (R, as1), fp32, brought by the
+// tensor-core warps. Stage 2 reuses the region: A, B (R, as), then the
+// Cxp, Sxp rows of one pass (lhp, kCStride).
+struct FwdGeom {
+  int kc;       // rows k per chunk, 16 or (for wide L) 8
+  int lhp;      // Lh padded with zero columns to a multiple of 8
+  int nt;       // n-tiles of 8 columns per tensor-core warp in stage 1
+  int nq;       // columns of 32 per lane of a building warp
+  int xs;       // row stride of X, = 8 mod 16
+  int as1;      // row stride of the Ayp, Byp rows, kc + 4 = 4 mod 8
+  int as;       // row stride of A, B in stage 2, = 4 mod 8
+  int vs;       // row stride of v, 32 nq
+  int span;     // floats of one plane's chunk, kc Lh rounded up to 4
+  int raw;      // floats of one raw buffer
+  int xbuf;     // floats of one X buffer
+  int abuf;     // floats of one Ayp, Byp buffer
+  int total;    // floats of the block
+};
+
+__host__ __device__ inline FwdGeom fwd_geom_kc(int C, int L, int R, int kc) {
+  FwdGeom g;
+  const int Lh = L / 2 + 1;
+  const int groups = kMmaWarps / (R / 16);   // n-groups of the mma warps
+  g.kc = kc;
+  g.lhp = (Lh + 7) / 8 * 8;
+  g.nt = (g.lhp / 8 + groups - 1) / groups;
+  g.nq = (g.nt * groups + 3) / 4;
+  g.xs = g.lhp % 16 == 8 ? g.lhp : g.lhp + 8;
+  g.as1 = kc + 4;
+  g.as = g.lhp + 4;
+  g.vs = 32 * g.nq;
+  g.span = (kc * Lh + 3) / 4 * 4;
+  g.raw = kPlanes * g.span + 2 * C * kc;
+  g.xbuf = 2 * kc * g.xs;
+  g.abuf = 2 * R * g.as1;
+  const int stage1 = 2 * (g.raw + g.xbuf + g.abuf);
+  const int stage2 = 2 * R * g.as + 2 * g.lhp * kCStride;
+  g.total = C * g.vs + (stage1 > stage2 ? stage1 : stage2);
+  return g;
+}
+
+// Chunks of 16 rows of k where they fit the block's shared memory, else 8
+__host__ __device__ inline FwdGeom fwd_geom(int C, int L, int R) {
+  const FwdGeom g = fwd_geom_kc(C, L, R, 16);
+  return g.total * 4 <= kSmemLimit ? g : fwd_geom_kc(C, L, R, 8);
+}
+
+// Rows of the forward's blocks: 64 above n = 32 (X built once per epoch
+// at n 64) where the n-tiles fit the registers, else 32; -1 where there
+// is no instance.
+inline int fwd_rows(int L, int n) {
+  const int R = n > 32 && fwd_geom(1, L, 64).nt <= kMaxNT ? 64 : 32;
+  return fwd_geom(1, L, R).nt <= kMaxNT ? R : -1;
 }
 
 // The backward's last region holds G (n, n) and the Cxp, Sxp tiles
@@ -73,117 +195,399 @@ int bwd_smem_floats(int C, int L, int n) {
   return 2 * C * L + C * kTile + 2 * n * kTile + bwd_region_floats(L, n);
 }
 
-// Epoch blockIdx.y, columns j0 = blockIdx.x * kTile ... of the half axis.
-// partial: (N, n_tiles, n, n), this tile's share of the epoch's render.
-__global__ void __launch_bounds__(kThreads)
-k2_forward_tile(const float* __restrict__ u_re, const float* __restrict__ u_im,
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a b, one m16n8k8 TF32 product with fp32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: lo*hi + hi*lo + hi*hi, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, al, bh[0], bh[1]);
+  mma(d, ah, bl[0], bl[1]);
+  mma(d, ah, bh[0], bh[1]);
+}
+
+// The A fragment of an m16n8k8 product from a row-major fp32 tile at p,
+// split into hi and lo on the way: rows g, g + 8 and columns t, t + 4 of
+// the lane (g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void load_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float* p, int stride) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * stride], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * stride + 4], hi[3], lo[3]);
+}
+
+// Asynchronous copies into shared memory (cp.async); a thread waits for
+// its own with cp_async_wait, and a barrier after that shows them to all
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// rows x cols floats from src (row stride ss) to dst (row stride ds) by
+// threads tid = 0 ... count - 1: 16 bytes a copy where both sides allow it
+__device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
+                                          size_t ss, int rows, int cols,
+                                          int tid, int count) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+                    (ss | ds | cols) % 4 == 0;
+  const int w = wide ? 4 : 1;
+  const int per_row = cols / w;
+  for (int p = tid; p < rows * per_row; p += count) {
+    const int r = p / per_row;
+    const int q = (p - r * per_row) * w;
+    if (wide)
+      cp_async16(dst + r * ds + q, src + r * ss + q);
+    else
+      cp_async4(dst + r * ds + q, src + r * ss + q);
+  }
+}
+
+// The same for one contiguous span of `size` floats
+__device__ __forceinline__ void copy_span(float* dst, const float* src,
+                                          int size, int tid, int count) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15) == 0 && size % 4 == 0) {
+    for (int q = 4 * tid; q < size; q += 4 * count)
+      cp_async16(dst + q, src + q);
+  } else {
+    for (int q = tid; q < size; q += count) cp_async4(dst + q, src + q);
+  }
+}
+
+// The B fragment (k rows t, t + 4 of column g) from a k-major fp32 tile
+// at p, split into hi and lo on the way
+__device__ __forceinline__ void load_b_split(uint32_t (&hi)[2],
+                                             uint32_t (&lo)[2],
+                                             const float* p, int stride) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4 * stride], hi[1], lo[1]);
+}
+
+// Named barriers between the warps that build X and those that contract
+// it: bar.sync waits for `count` threads, bar.arrive only counts itself
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+constexpr int kFull = 1;    // + buffer: X of the chunk is built
+constexpr int kEmpty = 3;   // + buffer: the tensor cores are done with it
+constexpr int kBuilt = 5;   // the building warps alone
+
+// Epoch blockIdx.y, output rows y0 = blockIdx.x * R ... of out (N, n, n),
+// written whole. NT = fwd_geom(C, L, R).nt; kFwdThreads threads.
+template <int NT, int R>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
                 const float* __restrict__ v, const float* __restrict__ t_re,
                 const float* __restrict__ t_im,
                 const float* __restrict__ r_hat, const float* __restrict__ pc,
                 const float* __restrict__ ps, const float* __restrict__ h_re,
                 const float* __restrict__ h_im, const float* __restrict__ ayp,
                 const float* __restrict__ byp, const float* __restrict__ cxp,
-                const float* __restrict__ sxp, float* __restrict__ partial,
+                const float* __restrict__ sxp, float* __restrict__ out,
                 int C, int L, int Lh, int n, int include_h) {
+  constexpr int kGroups = R / 16;                 // row groups of 16
+  constexpr int kNGroups = kMmaWarps / kGroups;   // n-groups, mma warps
+  constexpr int kNQ = (NT * kNGroups + 3) / 4;
+  constexpr int kMmaThreads = 32 * kMmaWarps;
+  constexpr int kBuildThreads = 32 * kBuildWarps;
   extern __shared__ float smem[];
+  const FwdGeom geo = fwd_geom(C, L, R);
   const int e = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int j0 = tile * kTile;
+  const int y0 = blockIdx.x * R;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int j = j0 + lane;
-  const bool j_in = j < Lh;
+  const int gid = lane >> 2;     // the fragments' row / column group
+  const int tig = lane & 3;      // and the lane within it
+  const int kcm = geo.kc, lhp = geo.lhp, xs = geo.xs, vs = geo.vs;
+  const int as1 = geo.as1, span = geo.span;
+  const int rows_in = min(R, n - y0);
 
-  float* su_re = smem;
-  float* su_im = su_re + C * L;
-  float* sv = su_im + C * L;
-  float* sxr = sv + C * kTile;
-  float* sxi = sxr + L * kTile;
-  float* sa = sxi + L * kTile;
-  float* sb = sa + n * kTile;
+  float* sv = smem;
+  float* region = sv + C * vs;
+  auto raw_buf = [&](int b) { return region + b * geo.raw; };
+  auto x_buf = [&](int b) { return region + 2 * geo.raw + b * geo.xbuf; };
+  auto ab_buf = [&](int b) {
+    return region + 2 * (geo.raw + geo.xbuf) + b * geo.abuf;
+  };
 
-  const size_t ue = static_cast<size_t>(e) * C * L;
-  for (int p = threadIdx.x; p < C * L; p += kThreads) {
-    su_re[p] = u_re[ue + p];
-    su_im[p] = u_im[ue + p];
-  }
-  for (int c = warp; c < C; c += kWarps)
-    sv[c * kTile + lane] =
-        j_in ? v[(static_cast<size_t>(e) * C + c) * Lh + j] : 0.f;
-  __syncthreads();
-
-  // X[:, tile]: warp w builds rows k = w, w + 8, ...; lane = column
-  const size_t te = static_cast<size_t>(e) * L * Lh;
-  for (int k = warp; k < L; k += kWarps) {
-    float xr = 0.f, xi = 0.f;
-    if (j_in) {
-      float sr = 0.f, si = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float vc = sv[c * kTile + lane];
-        sr = fmaf(su_re[c * L + k], vc, sr);
-        si = fmaf(su_im[c * L + k], vc, si);
-      }
-      const size_t q = static_cast<size_t>(k) * Lh + j;
-      const float tr = t_re[te + q], ti = t_im[te + q], r = r_hat[q];
-      const float pr = tr * r, pi = ti * r;
-      xr = sr * pr - si * pi;
-      xi = sr * pi + si * pr;
-      if (include_h) {
-        const float gr = tr * pc[q] - ti * ps[q];
-        const float gi = tr * ps[q] + ti * pc[q];
-        const float hr = h_re[q], hi = h_im[q];
-        xr += hr * gr - hi * gi;
-        xi += hr * gi + hi * gr;
-      }
-    }
-    sxr[k * kTile + lane] = xr;
-    sxi[k * kTile + lane] = xi;
+  for (int p = threadIdx.x; p < C * vs; p += kFwdThreads) {
+    const int c = p / vs;
+    const int j = p - c * vs;
+    sv[p] = j < Lh ? v[(static_cast<size_t>(e) * C + c) * Lh + j] : 0.f;
   }
   __syncthreads();
 
-  // stage 1: A + iB = (Ayp + i Byp) X[:, tile]; warp w takes rows
-  // y0 + w + 8 i, the Ayp/Byp loads are uniform across the warp
-  for (int y0 = 0; y0 < n; y0 += kWarps * kRows) {
-    float acc_a[kRows], acc_b[kRows];
+  // Stage 1 in chunks of kc rows of k, taken from chunk e on, wrapping
+  // around (blocks of other epochs read other rows of the shared planes at
+  // any one time). The building warps turn chunk `it` into X in buffer
+  // it % 2, from raw rows that cp.async brought while they built the last
+  // chunk, while the tensor-core warps contract chunk it - 1 from the other
+  // buffer, with Ayp, Byp rows that they brought themselves the same way.
+  const int n_chunks = (L + kcm - 1) / kcm;
+  auto chunk_k0 = [&](int it) { return (it + e) % n_chunks * kcm; };
+  float acc_a[NT][4], acc_b[NT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) acc_a[i] = acc_b[i] = 0.f;
-    for (int k = 0; k < L; ++k) {
-      const float xr = sxr[k * kTile + lane], xi = sxi[k * kTile + lane];
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int y = y0 + warp + kWarps * i;
-        if (y < n) {
-          const float ay = __ldg(ayp + static_cast<size_t>(y) * L + k);
-          const float by = __ldg(byp + static_cast<size_t>(y) * L + k);
-          acc_a[i] = fmaf(ay, xr, fmaf(-by, xi, acc_a[i]));
-          acc_b[i] = fmaf(ay, xi, fmaf(by, xr, acc_b[i]));
+    for (int q = 0; q < 4; ++q) acc_a[i][q] = acc_b[i][q] = 0.f;
+  const int wm = warp % kGroups;   // tensor-core warp: rows wm * 16 ...
+  const int wn = warp / kGroups;   // and the n-tiles wn + kNGroups i
+
+  if (warp >= kMmaWarps) {
+    const int bt = threadIdx.x - kMmaThreads;
+    const int bw = warp - kMmaWarps;
+    const int n_planes = include_h ? kPlanes : 3;
+    const size_t te = static_cast<size_t>(e) * L * Lh;
+    const size_t ue = static_cast<size_t>(e) * C * L;
+    auto fetch = [&](int it) {
+      const int k0 = chunk_k0(it);
+      const int kc = min(kcm, L - k0);
+      const size_t o = static_cast<size_t>(k0) * Lh;
+      const float* planes[kPlanes] = {t_re + te + o, t_im + te + o,
+                                      r_hat + o, pc + o, ps + o, h_re + o,
+                                      h_im + o};
+      float* dst = raw_buf(it & 1);
+#pragma unroll
+      for (int i = 0; i < kPlanes; ++i)
+        if (i < n_planes)
+          copy_span(dst + i * span, planes[i], kc * Lh, bt, kBuildThreads);
+      float* du = dst + kPlanes * span;
+      copy_rows(du, kcm, u_re + ue + k0, L, C, kc, bt, kBuildThreads);
+      copy_rows(du + C * kcm, kcm, u_im + ue + k0, L, C, kc, bt,
+                kBuildThreads);
+      cp_async_commit();
+    };
+    fetch(0);
+    for (int it = 0; it < n_chunks; ++it) {
+      const int b = it & 1;
+      const int kc = min(kcm, L - chunk_k0(it));   // a multiple of 8
+      cp_async_wait();
+      bar_sync(kBuilt, kBuildThreads);   // raw rows in; the last ones read
+      if (it + 1 < n_chunks) fetch(it + 1);
+      if (it >= 2) bar_sync(kEmpty + b, kFwdThreads);
+      const float* raw = raw_buf(b);
+      const float* ru = raw + kPlanes * span;
+      float* sxr = x_buf(b);
+      float* sxi = sxr + kcm * xs;
+      // X rows kk = bw, bw + kBuildWarps, ...; lane: the columns
+      // lane + 32 q, zero from Lh on
+      for (int kk = bw; kk < kc; kk += kBuildWarps) {
+        float sr[kNQ], si[kNQ];
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q) sr[q] = si[q] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float ur = ru[c * kcm + kk];
+          const float ui = ru[(C + c) * kcm + kk];
+#pragma unroll
+          for (int q = 0; q < kNQ; ++q) {
+            const float vc = sv[c * vs + lane + 32 * q];
+            sr[q] = fmaf(ur, vc, sr[q]);
+            si[q] = fmaf(ui, vc, si[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q) {
+          const int j = lane + 32 * q;
+          if (j >= lhp) break;
+          float xr = 0.f, xi = 0.f;
+          if (j < Lh) {
+            const int o = kk * Lh + j;
+            const float tr = raw[o], ti = raw[span + o];
+            const float r = raw[2 * span + o];
+            const float pr = tr * r, pi = ti * r;
+            xr = sr[q] * pr - si[q] * pi;
+            xi = sr[q] * pi + si[q] * pr;
+            if (include_h) {
+              const float cr = raw[3 * span + o], ci = raw[4 * span + o];
+              const float gr = tr * cr - ti * ci;
+              const float gi = tr * ci + ti * cr;
+              const float hr = raw[5 * span + o], hi = raw[6 * span + o];
+              xr += hr * gr - hi * gi;
+              xi += hr * gi + hi * gr;
+            }
+          }
+          sxr[kk * xs + j] = xr;
+          sxi[kk * xs + j] = xi;
         }
       }
+      bar_arrive(kFull + b, kFwdThreads);
     }
+  } else {
+    auto fetch_ab = [&](int it) {
+      const int k0 = chunk_k0(it);
+      const int kc = min(kcm, L - k0);
+      const size_t o = static_cast<size_t>(y0) * L + k0;
+      float* dst = ab_buf(it & 1);
+      copy_rows(dst, as1, ayp + o, L, rows_in, kc, threadIdx.x, kMmaThreads);
+      copy_rows(dst + R * as1, as1, byp + o, L, rows_in, kc, threadIdx.x,
+                kMmaThreads);
+      cp_async_commit();
+    };
+    fetch_ab(0);
+    // A += Ayp Xr - Byp Xi,  B += Byp Xr + Ayp Xi. Each of the four
+    // products of a k-step is summed on the tensor cores from zero and
+    // added to the running sums on the CUDA cores, rounded to nearest: the
+    // tensor cores' fp32 sums truncate, which over a long running sum
+    // costs ~1e-5.
+    for (int it = 0; it < n_chunks; ++it) {
+      const int b = it & 1;
+      const int kc = min(kcm, L - chunk_k0(it));
+      cp_async_wait();
+      // X built, the Ayp, Byp rows in, every mma warp done with the last
+      // chunk (so its Ayp, Byp buffer may be refilled)
+      bar_sync(kFull + b, kFwdThreads);
+      if (it + 1 < n_chunks) fetch_ab(it + 1);
+      const float* sxr = x_buf(b);
+      const float* sxi = sxr + kcm * xs;
+      const float* sa = ab_buf(b);
+      const float* sb = sa + R * as1;
+      for (int ks = 0; ks < kc; ks += 8) {
+        const int ar = (wm * 16 + gid) * as1 + ks + tig;
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        load_a_split(ah, al, sa + ar, as1);
+        load_a_split(bh, bl, sb + ar, as1);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int y = y0 + warp + kWarps * i;
-      if (y < n) {
-        sa[y * kTile + lane] = acc_a[i];
-        sb[y * kTile + lane] = acc_b[i];
+        for (int i = 0; i < NT; ++i) {
+          const int col = (wn + kNGroups * i) * 8;
+          if (col >= lhp) break;
+          const int xb = (ks + tig) * xs + col + gid;
+          uint32_t xrh[2], xrl[2], xih[2], xil[2];
+          load_b_split(xrh, xrl, sxr + xb, xs);
+          load_b_split(xih, xil, sxi + xb, xs);
+          float p1[4] = {}, p2[4] = {}, p3[4] = {}, p4[4] = {};
+          mma3(p1, ah, al, xrh, xrl);
+          mma3(p2, bh, bl, xih, xil);
+          mma3(p3, bh, bl, xrh, xrl);
+          mma3(p4, ah, al, xih, xil);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc_a[i][q] += p1[q] - p2[q];
+            acc_b[i][q] += p3[q] + p4[q];
+          }
+        }
+      }
+      if (it + 2 < n_chunks) bar_arrive(kEmpty + b, kFwdThreads);
+    }
+  }
+  __syncthreads();   // stage 1 is done: the region is free
+
+  // A, B to shared memory, fp32: accumulator element q of tile i is row
+  // gid + 8 (q / 2), column 2 tig + q % 2
+  const int as = geo.as;
+  float* sA = region;
+  float* sB = sA + R * as;
+  if (warp < kMmaWarps) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int col = (wn + kNGroups * i) * 8;
+      if (col >= lhp) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = (wm * 16 + gid + 8 * (q >> 1)) * as + col + 2 * tig +
+                      (q & 1);
+        sA[s] = acc_a[i][q];
+        sB[s] = acc_b[i][q];
       }
     }
   }
-  __syncthreads();
 
-  // stage 2, this tile's share: sum over its columns of A Cxp - B Sxp
-  const int jn = min(kTile, Lh - j0);
-  float* out = partial + (static_cast<size_t>(e) * gridDim.x + tile) * n * n;
-  for (int p = threadIdx.x; p < n * n; p += kThreads) {
-    const int y = p / n;
-    const int x = p - y * n;
-    float acc = 0.f;
-    for (int jj = 0; jj < jn; ++jj) {
-      const size_t q = static_cast<size_t>(j0 + jj) * n + x;
-      acc = fmaf(sa[y * kTile + jj], cxp[q], acc);
-      acc = fmaf(-sb[y * kTile + jj], sxp[q], acc);
+  // stage 2: out = A Cxp - B Sxp on kStage2Warps warps, kPassCols output
+  // columns per pass, all rows j of Cxp, Sxp brought at once by cp.async
+  // (by all warps); warp (mt, wx) takes rows mt * 16 ... + 15 and the
+  // x-tiles wx + kXStep i
+  constexpr int kXStep = kStage2Warps / kGroups;   // warps per row group
+  constexpr int kXTiles = 8 / kXStep;        // x-tiles per warp and pass
+  float* sc = sB + R * as;
+  float* ss = sc + lhp * kCStride;
+  const int mt = warp % kGroups;
+  const int wx = warp / kGroups;
+  float* oute = out + static_cast<size_t>(e) * n * n;
+  for (int x0 = 0; x0 < n; x0 += kPassCols) {
+    __syncthreads();   // A, B written; the last pass's rows read
+    const int cols = min(kPassCols, n - x0);
+    copy_rows(sc, kCStride, cxp + x0, n, Lh, cols, threadIdx.x, kFwdThreads);
+    copy_rows(ss, kCStride, sxp + x0, n, Lh, cols, threadIdx.x, kFwdThreads);
+    cp_async_commit();
+    for (int p = threadIdx.x; p < (lhp - Lh) * kCStride; p += kFwdThreads) {
+      sc[Lh * kCStride + p] = 0.f;   // the padding rows: zero, not stale
+      ss[Lh * kCStride + p] = 0.f;
     }
-    out[p] = acc;
+    cp_async_wait();
+    __syncthreads();
+    if (warp >= kStage2Warps) continue;
+    float acc[kXTiles][4] = {};
+    for (int ks = 0; ks < lhp; ks += 8) {
+      const int ar = (mt * 16 + gid) * as + ks + tig;
+      uint32_t ah[4], al[4], bh[4], bl[4];
+      load_a_split(ah, al, sA + ar, as);
+      load_a_split(bh, bl, sB + ar, as);
+#pragma unroll
+      for (int i = 0; i < kXTiles; ++i) {
+        const int col = (wx + kXStep * i) * 8;
+        if (col >= cols) break;
+        const int cb = (ks + tig) * kCStride + col + gid;
+        uint32_t ch[2], cl[2], sh[2], sl[2];
+        load_b_split(ch, cl, sc + cb, kCStride);
+        load_b_split(sh, sl, ss + cb, kCStride);
+        float p1[4] = {}, p2[4] = {};
+        mma3(p1, ah, al, ch, cl);
+        mma3(p2, bh, bl, sh, sl);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] += p1[q] - p2[q];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kXTiles; ++i) {
+      const int col = x0 + (wx + kXStep * i) * 8 + 2 * tig;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int y = y0 + mt * 16 + gid + 8 * (q >> 1);
+        const int x = col + (q & 1);
+        if (y < n && x < n) oute[static_cast<size_t>(y) * n + x] = acc[i][q];
+      }
+    }
   }
 }
 
@@ -384,8 +788,27 @@ cudaError_t allow_smem(K kernel, int bytes, int* configured) {
   return e;
 }
 
-int g_forward_smem = 0;
+int g_forward_smem[2][kMaxNT + 1] = {};
 int g_backward_smem = 0;
+
+template <int NT, int R>
+cudaError_t launch_forward(const float* u_re, const float* u_im,
+                           const float* v, const float* t_re,
+                           const float* t_im, const float* r_hat,
+                           const float* pc, const float* ps,
+                           const float* h_re, const float* h_im,
+                           const float* ayp, const float* byp,
+                           const float* cxp, const float* sxp, float* out,
+                           int N, int C, int L, int Lh, int n, int include_h,
+                           int smem, cudaStream_t s) {
+  cudaError_t e = allow_smem(k2_forward_rows<NT, R>, smem,
+                             &g_forward_smem[R / 64][NT]);
+  if (e != cudaSuccess) return e;
+  k2_forward_rows<NT, R><<<dim3((n + R - 1) / R, N), kFwdThreads, smem, s>>>(
+      u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp,
+      sxp, out, C, L, Lh, n, include_h);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -404,38 +827,66 @@ int k2_smem_optin(int device) {
 }
 
 // Dynamic shared memory of one block of the forward (backward = 0) or
-// backward (backward = 1) tile kernel, in bytes.
+// backward (backward = 1) kernel, in bytes; -1 where the forward has no
+// instance (L too wide for its register tiles).
 int k2_smem_bytes(int backward, int C, int L, int n) {
-  const int floats = backward ? bwd_smem_floats(C, L, n)
-                              : fwd_smem_floats(C, L, n);
-  return floats * static_cast<int>(sizeof(float));
+  const int bytes = static_cast<int>(sizeof(float));
+  if (backward) return bwd_smem_floats(C, L, n) * bytes;
+  const int R = fwd_rows(L, n);
+  if (R < 0) return -1;
+  return fwd_geom(C, L, R).total * bytes;
 }
 
 const char* k2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// partial: scratch (N, ceil(Lh / kTile), n, n); out: (N, n, n).
-// h_re, h_im are not read when include_h is 0.
+// out: (N, n, n), written whole by one launch. h_re, h_im are not read
+// when include_h is 0.
 int k2_forward(const float* u_re, const float* u_im, const float* v,
                const float* t_re, const float* t_im, const float* r_hat,
                const float* pc, const float* ps, const float* h_re,
                const float* h_im, const float* ayp, const float* byp,
-               const float* cxp, const float* sxp, float* partial,
-               float* out, int N, int C, int L, int Lh, int n, int include_h,
-               void* stream) {
+               const float* cxp, const float* sxp, float* out, int N, int C,
+               int L, int Lh, int n, int include_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int smem = k2_smem_bytes(0, C, L, n);
-  cudaError_t e = allow_smem(k2_forward_tile, smem, &g_forward_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = (Lh + kTile - 1) / kTile;
-  k2_forward_tile<<<dim3(n_tiles, N), kThreads, smem, s>>>(
-      u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp,
-      sxp, partial, C, L, Lh, n, include_h);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_sum_middle(partial, out, N, n_tiles, n * n,
-                                            s));
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = fwd_rows(L, n);
+#define K2_ARGS                                                             \
+  u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp, sxp, \
+      out, N, C, L, Lh, n, include_h, smem, s
+#define K2_FORWARD(NT, R)                                                   \
+  case NT:                                                                  \
+    return static_cast<int>(launch_forward<NT, R>(K2_ARGS))
+  if (R == 64) {
+    switch (fwd_geom(C, L, 64).nt) {
+      K2_FORWARD(1, 64);
+      K2_FORWARD(2, 64);
+      K2_FORWARD(3, 64);
+      K2_FORWARD(4, 64);
+      K2_FORWARD(5, 64);
+      K2_FORWARD(6, 64);
+      K2_FORWARD(7, 64);
+      K2_FORWARD(8, 64);
+      K2_FORWARD(9, 64);
+    }
+  } else {
+    switch (fwd_geom(C, L, 32).nt) {
+      K2_FORWARD(1, 32);
+      K2_FORWARD(2, 32);
+      K2_FORWARD(3, 32);
+      K2_FORWARD(4, 32);
+      K2_FORWARD(5, 32);
+      K2_FORWARD(6, 32);
+      K2_FORWARD(7, 32);
+      K2_FORWARD(8, 32);
+      K2_FORWARD(9, 32);
+    }
+  }
+#undef K2_FORWARD
+#undef K2_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // du_part: scratch (2, N, n_tiles, C, L); du: (2, N, C, L) = du_re, du_im;

@@ -58,7 +58,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.k2_forward.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+            lib.k2_forward.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
             lib.k2_backward.argtypes = [ptr] * 18 + [i32] * 6 + [ptr]
             for fn in (lib.k2_forward, lib.k2_backward):
                 fn.restype = i32
@@ -118,6 +118,9 @@ def _prepare(what, backward, device, N, C, L, Lh, n):
     if index not in _smem_optin:
         _smem_optin[index] = lib.k2_smem_optin(index)
     need = lib.k2_smem_bytes(int(backward), C, L, n)
+    if need < 0:
+        raise ValueError(f"{what}: no kernel instance for L={L}: the half "
+                         "axis is wider than the forward's register tiles")
     if need > _smem_optin[index]:
         raise ValueError(f"{what}: 2M={C}, L={L}, n={n} need {need} bytes "
                          f"of shared memory, the card allows "
@@ -138,7 +141,8 @@ def _raise_on(lib, rc, what):
 def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
             ayp, byp, cxp, sxp, include_h=True):
     """K2 forward on the card: (N, n, n); h may be None without
-    ``include_h``."""
+    ``include_h``. One launch writes the output whole (3xTF32 products on
+    the tensor cores, float32 accuracy), with no scratch and no atomics."""
     what = "fused_render forward"
     N, C, L, Lh, n = _geometry(what, u_re, v, ayp)
     shapes = _shapes(N, C, L, Lh, n)
@@ -150,16 +154,13 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
     _check(what, u_re.device, {k: (x, shapes[k]) for k, x in named.items()})
     lib = _prepare(what, False, u_re.device, N, C, L, Lh, n)
     out = torch.empty(N, n, n, device=u_re.device, dtype=torch.float32)
-    n_tiles = -(-Lh // lib.k2_tile_width())
-    partial = torch.empty(N, n_tiles, n, n, device=u_re.device,
-                          dtype=torch.float32)
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
         rc = lib.k2_forward(
             *(_ptr(x) for x in (u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
                                 h_re if include_h else None,
                                 h_im if include_h else None,
-                                ayp, byp, cxp, sxp, partial, out)),
+                                ayp, byp, cxp, sxp, out)),
             N, C, L, Lh, n, int(bool(include_h)), stream)
     _raise_on(lib, rc, what)
     launches.forward += 1

@@ -9,9 +9,12 @@ which imports jax):
 
 Tests that need the card carry the ``gpu`` marker and skip without one.
 Tolerances on the card: K1 max|diff| <= 1e-5 max|input| (float32, the
-kernel sums each stencil in another order than the twin); K2
-max|diff| <= 1e-4 max|plain| (the JAX package's bar for its kernel:
-float32 sums over L = 256 terms taken in another order than cuBLAS).
+kernel sums each stencil in another order than the twin); K2 forward
+max|diff| <= 1e-5 max|plain| (its products are 3xTF32 on the tensor
+cores: float32 accuracy, where plain TF32 products miss by ~1e-4, see
+the CPU rehearsal of the split below); K2 backward max|diff| <= 1e-4
+max|plain| (the JAX package's bar for its kernel: float32 sums over
+L = 256 terms taken in another order than cuBLAS).
 """
 
 import pytest
@@ -25,6 +28,7 @@ from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
 
 TOL = 1e-5
 K2_TOL = 1e-4
+K2_FWD_TOL = 1e-5
 
 
 @pytest.fixture()
@@ -156,7 +160,8 @@ def test_k2_kernels_match_plain(cuda, n_pix, include_h):
     assert (c.forward, c.backward) == (1, 1)
     assert (c.forward_h, c.backward_h) == (int(include_h),) * 2
     ref = fused_render.render_plain(*ops, include_h=include_h)
-    assert (out - ref).abs().max().item() <= K2_TOL * ref.abs().max().item()
+    assert (out - ref).abs().max().item() \
+        <= K2_FWD_TOL * ref.abs().max().item()
     refs = fused_render.render_backward_plain(g, *bwd_ops,
                                               include_h=include_h)
     for got, want in zip(grads, refs):
@@ -211,3 +216,102 @@ def test_k2_wrappers_reject_bad_input(cuda):
         fused_render_cuda.backward(g[:, :-1], *ops[:8], *ops[10:])
     with pytest.raises(ValueError, match="cpu"):
         fused_render_cuda.forward(*ops[:5], ops[5].cpu(), *ops[6:])
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul(a, b, terms):
+    """a @ b from float32 operands split into TF32 hi + lo, the products
+    hi hi (+ hi lo + lo hi with ``terms`` 3) summed in float64, so that
+    only the split's rounding remains; rounded to float32 like the
+    kernel's accumulators."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    out = ah.double() @ bh.double()
+    if terms == 3:
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out.float()
+
+
+def _render_split(ops, terms):
+    """K2 forward as the kernel computes it: X in float32 on the CUDA
+    cores, both products through :func:`_split_matmul`."""
+    (u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
+     ayp, byp, cxp, sxp) = ops
+    spec_re = torch.einsum("eck,ecj->ekj", u_re, v)
+    spec_im = torch.einsum("eck,ecj->ekj", u_im, v)
+    p_re, p_im = t_re * r_hat, t_im * r_hat
+    g_re, g_im = t_re * pc - t_im * ps, t_re * ps + t_im * pc
+    x_re = spec_re * p_re - spec_im * p_im + h_re * g_re - h_im * g_im
+    x_im = spec_re * p_im + spec_im * p_re + h_re * g_im + h_im * g_re
+    # stage 1 as one real product: [A; B] = [[Ayp, -Byp], [Byp, Ayp]] X
+    lhs = torch.cat([torch.cat([ayp, -byp], 1), torch.cat([byp, ayp], 1)])
+    ab = _split_matmul(lhs, torch.cat([x_re, x_im], 1), terms)
+    n = ayp.shape[0]
+    # stage 2: out = [A, -B] [Cxp; Sxp]
+    return _split_matmul(torch.cat([ab[:, :n], -ab[:, n:]], 2),
+                         torch.cat([cxp, sxp]), terms)
+
+
+@pytest.mark.parametrize("terms,agrees", [(3, True), (1, False)])
+def test_k2_split_products_hold_the_forward_bar(terms, agrees):
+    """The forward's 3xTF32 split keeps float32 accuracy (within 1e-6 of
+    a float64 render) at ROI-100 widths (n 64, L 256), while plain TF32
+    products miss the card's bar of 1e-5: the bar sees that fault."""
+    ops, _ = _k2_case("cpu", 3, 64, seed=4)
+    assert ops[10].shape == (64, 256)
+    ref = fused_render.render_plain(*(x.double() for x in ops))
+    err = (_render_split(ops, terms).double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if agrees:
+        assert err <= 1e-6 * scale
+    else:
+        assert err > K2_FWD_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_epochs,n_pix", [(7, 12), (3, 80), (2, 112)])
+@pytest.mark.parametrize("include_h", [True, False])
+def test_k2_forward_matches_plain_at_ragged_shapes(cuda, n_epochs, n_pix,
+                                                   include_h):
+    """n 12 (L 48: Lh 25 is not a multiple of 8, the last k chunk is
+    short, 32 rows a block, mostly padding), n 80 (L 320: 64 rows a
+    block, the second ragged, two output passes) and n 112 (L 448: too
+    wide for 64-row tiles, so four blocks of 32 rows, and chunks of 8
+    rows of k to fit shared memory)."""
+    ops, _ = _k2_case(cuda, n_epochs, n_pix, seed=n_pix)
+    if not include_h:
+        ops = (*ops[:8], None, None, *ops[10:])
+    out = fused_render_cuda.forward(*ops, include_h=include_h)
+    ref = fused_render.render_plain(*ops, include_h=include_h)
+    assert (out - ref).abs().max().item() \
+        <= K2_FWD_TOL * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k2_forward_is_one_launch_without_scratch(cuda):
+    """The forward writes final rows in one launch: the call allocates
+    less than its output and the tile design's partial sums
+    (N, ceil(Lh / 32), n, n) would take (the caching allocator may hand the
+    output a larger cached block), and two launches give the same bits."""
+    ops, _ = _k2_case(cuda, 100, 64, seed=6)
+    fused_render_cuda.forward(*ops)            # build and load first
+    torch.cuda.synchronize()
+    fused_render_cuda.launches.reset()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = fused_render_cuda.forward(*ops)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - before
+    again = fused_render_cuda.forward(*ops)
+    assert fused_render_cuda.launches.forward == 2
+    n_epochs, n, _ = out.shape
+    lh = ops[2].shape[-1]
+    partial = n_epochs * -(-lh // 32) * n * n * out.element_size()
+    assert grown < out.numel() * out.element_size() + partial
+    assert torch.equal(out, again)
