@@ -12,11 +12,16 @@ prints no result:
    into ``build/lightcurver_tpu_torch/``), with their times and the
    ``-Xptxas -v`` register and spill lines;
 3. each K1 kernel against its plain PyTorch twin on the card at the main
-   path's shapes (m in {64, 128}, batch in {1, 500}), held to
-   max|diff| <= 1e-5 max|input|, and timed beside the twin;
+   path's shapes (m in {64, 128}, batch in {1, 500}) and at m 256 (past
+   one block's shared memory) and m 62 (an odd stamp at s = 2), batch 1,
+   held to max|diff| <= 1e-5 max|input|, and timed beside the twin, with
+   the cluster size C that the wrapper chose for each shape (the kernel's
+   time from a CUDA graph of its calls, and in a loop of calls, which at
+   batch 1 also times the host's cost of issuing them);
 3b. K2 forward (with and without the background channel) and backward
-   against their plain twins on the card, at ROI-100 (100 epochs, n 64)
-   and the production stamp (100 epochs, n 32), held to
+   against their plain twins on the card, at ROI-100 (100 epochs, n 64),
+   the production stamp (100 epochs, n 32) and an odd stamp (n 31, whose
+   k axis the wrapper pads from 124 to 128), held to
    max|diff| <= 1e-5 max|plain| (forward: 3xTF32 products keep float32
    accuracy, plain TF32 would miss by ~1e-4) and 1e-4 (backward), timed
    beside the twins, the forward's TFLOP/s and share of its bounds;
@@ -94,6 +99,34 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device time of ``fn``: ``reps`` calls captured in one CUDA graph
+    and replayed between two CUDA events, after a warm-up on a side stream.
+    A loop of launches shorter than the host's cost of issuing them times
+    the host; the replay does not."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(n_bytes, ops):
     """(bound_ms, bound_by): the larger of ``n_bytes`` over the memory rate
     and the time of ``ops``, pairs (FLOPs, peak rate) of units that run
@@ -145,38 +178,41 @@ def phase_kernels(torch, starlet_cuda, plain):
     gen = torch.Generator().manual_seed(0)
     records = {"starlet_forward": {"max_abs_err": 0.0},
                "starlet_adjoint": {"max_abs_err": 0.0}}
-    for m in (64, 128):
+    for m, batch in ((64, 1), (64, 500), (128, 1), (128, 500), (256, 1),
+                     (62, 1)):
         n_scales = plain.n_starlet_scales(m)
-        for batch in (1, 500):
-            x = torch.randn(batch, m, m, generator=gen).cuda()
-            g = torch.randn(batch, n_scales + 1, m, m, generator=gen).cuda()
-            pairs = (
-                ("starlet_forward", x,
-                 lambda: starlet_cuda.starlet_forward(x),
-                 lambda: plain.starlet_transform(x)),
-                ("starlet_adjoint", g,
-                 lambda: starlet_cuda.starlet_adjoint(g),
-                 lambda: plain.starlet_adjoint(g)),
-            )
-            for name, inp, kernel, twin in pairs:
-                out = kernel()
-                torch.cuda.synchronize()
-                err = (out - twin()).abs().max().item()
-                bound = TOL * inp.abs().max().item()
-                check(err <= bound, f"{name} m={m} B={batch}: max|diff| "
-                      f"{err:.3e} > {bound:.3e}")
-                reps = 200 if batch == 1 else 20
-                ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(twin, reps)
-                rec = records[name]
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if (m, batch) == (128, 1):
-                    # the shape of every stage-2 iteration of ROI-100
-                    bound_ms, bound_by = k1_bound(m, batch, n_scales)
-                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
-                say(3, f"{name} m={m} B={batch}: max|diff| {err:.3e} "
-                    f"(bound {bound:.3e}); kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms")
+        cluster = starlet_cuda.cluster_for(torch.device("cuda"), m, batch)
+        x = torch.randn(batch, m, m, generator=gen).cuda()
+        g = torch.randn(batch, n_scales + 1, m, m, generator=gen).cuda()
+        pairs = (
+            ("starlet_forward", x,
+             lambda: starlet_cuda.starlet_forward(x),
+             lambda: plain.starlet_transform(x)),
+            ("starlet_adjoint", g,
+             lambda: starlet_cuda.starlet_adjoint(g),
+             lambda: plain.starlet_adjoint(g)),
+        )
+        for name, inp, kernel, twin in pairs:
+            out = kernel()
+            torch.cuda.synchronize()
+            err = (out - twin()).abs().max().item()
+            bound = TOL * inp.abs().max().item()
+            check(err <= bound, f"{name} m={m} B={batch}: max|diff| "
+                  f"{err:.3e} > {bound:.3e}")
+            reps = 200 if batch == 1 else 20
+            loop_ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(twin, reps)
+            ms = graph_ms(kernel, reps)
+            rec = records[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if (m, batch) == (128, 1):
+                # the shape of every stage-2 iteration of ROI-100
+                bound_ms, bound_by = k1_bound(m, batch, n_scales)
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            say(3, f"{name} m={m} B={batch} C={cluster}: max|diff| "
+                f"{err:.3e} (bound {bound:.3e}); kernel {ms:.4f} ms (CUDA "
+                f"graph; {loop_ms:.4f} ms a call in a loop), plain "
+                f"{plain_ms:.4f} ms")
     return records
 
 
@@ -201,7 +237,7 @@ def phase_k2(torch, k2_cuda, twin, setup_model, make_roi_scene, card):
                "fused_render_backward": {"max_abs_err": 0.0}}
     tols = {"fused_render_forward": K2_FWD_TOL,
             "fused_render_backward": K2_TOL}
-    for n_pix in (64, 32):
+    for n_pix in (64, 32, 31):
         scene = make_roi_scene(n_epochs=100, n_pix=n_pix, s=2, n_sources=4,
                                seed=11)
         ops, g = k2_operands(torch, setup_model, scene, seed=n_pix)

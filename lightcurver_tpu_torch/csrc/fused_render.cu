@@ -94,6 +94,11 @@
 // L = 256: two blocks per SM), and each warp owns 8 contiguous rows of dX,
 // so Ayp and Byp arrive as float4. Its products are fp32 FMAs.
 //
+// The k axis (L) is taken in steps of 8. An odd stamp at s = 2 gives
+// L = 4 mod 8, so the wrapper pads k with zeros to a multiple of 8 (zero
+// columns of u, Ayp, Byp, zero rows of the planes: the same sums) and
+// passes the padded L with the Lh of the unpadded one.
+//
 // Interface: plain C, bound with ctypes. Each call runs on the caller's
 // stream, allocates nothing (the wrapper passes any scratch), does not
 // synchronise, and returns cudaGetLastError() as an int.
@@ -146,9 +151,9 @@ struct FwdGeom {
   int total;    // floats of the block
 };
 
-__host__ __device__ inline FwdGeom fwd_geom_kc(int C, int L, int R, int kc) {
+__host__ __device__ inline FwdGeom fwd_geom_kc(int C, int L, int Lh, int R,
+                                               int kc) {
   FwdGeom g;
-  const int Lh = L / 2 + 1;
   const int groups = kMmaWarps / (R / 16);   // n-groups of the mma warps
   g.kc = kc;
   g.lhp = (Lh + 7) / 8 * 8;
@@ -169,17 +174,17 @@ __host__ __device__ inline FwdGeom fwd_geom_kc(int C, int L, int R, int kc) {
 }
 
 // Chunks of 16 rows of k where they fit the block's shared memory, else 8
-__host__ __device__ inline FwdGeom fwd_geom(int C, int L, int R) {
-  const FwdGeom g = fwd_geom_kc(C, L, R, 16);
-  return g.total * 4 <= kSmemLimit ? g : fwd_geom_kc(C, L, R, 8);
+__host__ __device__ inline FwdGeom fwd_geom(int C, int L, int Lh, int R) {
+  const FwdGeom g = fwd_geom_kc(C, L, Lh, R, 16);
+  return g.total * 4 <= kSmemLimit ? g : fwd_geom_kc(C, L, Lh, R, 8);
 }
 
 // Rows of the forward's blocks: 64 above n = 32 (X built once per epoch
 // at n 64) where the n-tiles fit the registers, else 32; -1 where there
 // is no instance.
-inline int fwd_rows(int L, int n) {
-  const int R = n > 32 && fwd_geom(1, L, 64).nt <= kMaxNT ? 64 : 32;
-  return fwd_geom(1, L, R).nt <= kMaxNT ? R : -1;
+inline int fwd_rows(int L, int Lh, int n) {
+  const int R = n > 32 && fwd_geom(1, L, Lh, 64).nt <= kMaxNT ? 64 : 32;
+  return fwd_geom(1, L, Lh, R).nt <= kMaxNT ? R : -1;
 }
 
 // The backward's last region holds G (n, n) and the Cxp, Sxp tiles
@@ -315,7 +320,7 @@ constexpr int kEmpty = 3;   // + buffer: the tensor cores are done with it
 constexpr int kBuilt = 5;   // the building warps alone
 
 // Epoch blockIdx.y, output rows y0 = blockIdx.x * R ... of out (N, n, n),
-// written whole. NT = fwd_geom(C, L, R).nt; kFwdThreads threads.
+// written whole. NT = fwd_geom(C, L, Lh, R).nt; kFwdThreads threads.
 template <int NT, int R>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
@@ -333,7 +338,7 @@ k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
   constexpr int kMmaThreads = 32 * kMmaWarps;
   constexpr int kBuildThreads = 32 * kBuildWarps;
   extern __shared__ float smem[];
-  const FwdGeom geo = fwd_geom(C, L, R);
+  const FwdGeom geo = fwd_geom(C, L, Lh, R);
   const int e = blockIdx.y;
   const int y0 = blockIdx.x * R;
   const int lane = threadIdx.x & 31;
@@ -829,12 +834,12 @@ int k2_smem_optin(int device) {
 // Dynamic shared memory of one block of the forward (backward = 0) or
 // backward (backward = 1) kernel, in bytes; -1 where the forward has no
 // instance (L too wide for its register tiles).
-int k2_smem_bytes(int backward, int C, int L, int n) {
+int k2_smem_bytes(int backward, int C, int L, int Lh, int n) {
   const int bytes = static_cast<int>(sizeof(float));
   if (backward) return bwd_smem_floats(C, L, n) * bytes;
-  const int R = fwd_rows(L, n);
+  const int R = fwd_rows(L, Lh, n);
   if (R < 0) return -1;
-  return fwd_geom(C, L, R).total * bytes;
+  return fwd_geom(C, L, Lh, R).total * bytes;
 }
 
 const char* k2_error_string(int code) {
@@ -850,9 +855,9 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
                const float* cxp, const float* sxp, float* out, int N, int C,
                int L, int Lh, int n, int include_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = k2_smem_bytes(0, C, L, n);
+  const int smem = k2_smem_bytes(0, C, L, Lh, n);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int R = fwd_rows(L, n);
+  const int R = fwd_rows(L, Lh, n);
 #define K2_ARGS                                                             \
   u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp, sxp, \
       out, N, C, L, Lh, n, include_h, smem, s
@@ -860,7 +865,7 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
   case NT:                                                                  \
     return static_cast<int>(launch_forward<NT, R>(K2_ARGS))
   if (R == 64) {
-    switch (fwd_geom(C, L, 64).nt) {
+    switch (fwd_geom(C, L, Lh, 64).nt) {
       K2_FORWARD(1, 64);
       K2_FORWARD(2, 64);
       K2_FORWARD(3, 64);
@@ -872,7 +877,7 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
       K2_FORWARD(9, 64);
     }
   } else {
-    switch (fwd_geom(C, L, 32).nt) {
+    switch (fwd_geom(C, L, Lh, 32).nt) {
       K2_FORWARD(1, 32);
       K2_FORWARD(2, 32);
       K2_FORWARD(3, 32);
@@ -900,7 +905,7 @@ int k2_backward(const float* g, const float* u_re, const float* u_im,
                 float* dh_part, float* dh, int N, int C, int L, int Lh, int n,
                 int include_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = k2_smem_bytes(1, C, L, n);
+  const int smem = k2_smem_bytes(1, C, L, Lh, n);
   cudaError_t e = allow_smem(k2_backward_tile, smem, &g_backward_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_tiles = (Lh + kTile - 1) / kTile;

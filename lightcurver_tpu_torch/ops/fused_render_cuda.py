@@ -12,9 +12,11 @@ The library is compiled by ``nvcc`` at first use through
 loaded when this module is imported. :func:`forward` and
 :func:`backward` take CUDA tensors only: they check dtype, device,
 contiguity and every shape against the contract, and raise on what the
-kernels do not take, before anything is launched. The counts in
-:data:`launches` grow by one per call that launches the kernels and
-nowhere else.
+kernels do not take, before anything is launched. The kernels take the
+k axis (L) in steps of 8; where L is not a multiple of 8 (an odd stamp at
+s = 2 gives L = 4 mod 8) the wrappers pad it with zeros (:func:`pad_k`)
+and slice the gradients back. The counts in :data:`launches` grow by one
+per call that launches the kernels and nowhere else.
 
 Numbers: kernel times in PERF.md were taken on an NVIDIA H100 and carry
 the card's name and power limit; no TPU figure applies here.
@@ -29,6 +31,10 @@ from . import cuda_build
 
 SOURCE = cuda_build.CSRC / "fused_render.cu"
 MAX_EPOCHS = 65535   # the epoch axis is the grid's y dimension
+K_STEP = 8           # the kernels take the k axis in steps of 8
+# the axis of each forward operand (in the forward's order) that runs
+# over k, None for those without one
+_K_AXIS = (-1, -1, None, -2, -2, -2, -2, -2, -2, -2, -1, -1, None, None)
 
 
 class LaunchCounts:
@@ -64,7 +70,7 @@ def _load():
                 fn.restype = i32
             for name, args in (("k2_tile_width", []),
                                ("k2_smem_optin", [i32]),
-                               ("k2_smem_bytes", [i32] * 4)):
+                               ("k2_smem_bytes", [i32] * 5)):
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = i32
             lib.k2_error_string.argtypes = [i32]
@@ -80,7 +86,11 @@ def _geometry(what, u_re, v, ayp):
         raise ValueError(f"{what}: u (N, 2M, L), v (N, 2M, Lh) and "
                          "Ayp (n, L) expected")
     N, C, L = u_re.shape
-    return N, C, L, v.shape[-1], ayp.shape[0]
+    Lh, n = v.shape[-1], ayp.shape[0]
+    if Lh != L // 2 + 1 or n > L:
+        raise ValueError(f"{what}: Lh={Lh} must be L//2+1 for L={L}, and "
+                         f"n={n} at most L")
+    return N, C, L, Lh, n
 
 
 def _check(what, device, operands):
@@ -105,19 +115,32 @@ def _shapes(N, C, L, Lh, n):
             "g": (N, n, n)}
 
 
+def pad_k(ops):
+    """The forward's 14 operands with the k axis padded with zeros to a
+    multiple of :data:`K_STEP`: zero columns of u_re, u_im, Ayp, Byp and
+    zero rows of the (L, Lh) planes and of t_re, t_im. The render and the
+    gradients of the first L rows of k are the same sums. Operands that
+    are None stay None; nothing is copied where L is a multiple already."""
+    pad = -ops[0].shape[-1] % K_STEP
+    if not pad:
+        return tuple(ops)
+    return tuple(
+        x if x is None or axis is None else torch.nn.functional.pad(
+            x, (0, pad) if axis == -1 else (0, 0, 0, pad))
+        for x, axis in zip(ops, _K_AXIS))
+
+
 def _prepare(what, backward, device, N, C, L, Lh, n):
-    """The library, after the limits of the geometry are checked."""
+    """The library, after the limits of the geometry are checked; L is
+    the padded length, a multiple of :data:`K_STEP`."""
     if not 0 < N <= MAX_EPOCHS:
         raise ValueError(f"{what}: {N} epochs, expected 1 to {MAX_EPOCHS}")
-    if Lh != L // 2 + 1 or n > L or L % 8:
-        raise ValueError(f"{what}: Lh={Lh} must be L//2+1 for L={L}, L a "
-                         f"multiple of 8, and n={n} at most L")
     lib = _load()
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     if index not in _smem_optin:
         _smem_optin[index] = lib.k2_smem_optin(index)
-    need = lib.k2_smem_bytes(int(backward), C, L, n)
+    need = lib.k2_smem_bytes(int(backward), C, L, Lh, n)
     if need < 0:
         raise ValueError(f"{what}: no kernel instance for L={L}: the half "
                          "axis is wider than the forward's register tiles")
@@ -152,16 +175,16 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
     if include_h:
         named.update(h_re=h_re, h_im=h_im)
     _check(what, u_re.device, {k: (x, shapes[k]) for k, x in named.items()})
+    ops = pad_k((u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
+                 h_re if include_h else None, h_im if include_h else None,
+                 ayp, byp, cxp, sxp))
+    L = ops[0].shape[-1]
     lib = _prepare(what, False, u_re.device, N, C, L, Lh, n)
     out = torch.empty(N, n, n, device=u_re.device, dtype=torch.float32)
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
-        rc = lib.k2_forward(
-            *(_ptr(x) for x in (u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
-                                h_re if include_h else None,
-                                h_im if include_h else None,
-                                ayp, byp, cxp, sxp, out)),
-            N, C, L, Lh, n, int(bool(include_h)), stream)
+        rc = lib.k2_forward(*(_ptr(x) for x in (*ops, out)),
+                            N, C, L, Lh, n, int(bool(include_h)), stream)
     _raise_on(lib, rc, what)
     launches.forward += 1
     launches.forward_h += int(bool(include_h))
@@ -180,7 +203,12 @@ def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
                  r_hat=r_hat, pc=pc, ps=ps, ayp=ayp, byp=byp, cxp=cxp,
                  sxp=sxp)
     _check(what, u_re.device, {k: (x, shapes[k]) for k, x in named.items()})
-    if ayp.data_ptr() % 16 or byp.data_ptr() % 16:
+    L0 = L
+    ops = pad_k((u_re, u_im, v, t_re, t_im, r_hat, pc, ps, None, None,
+                 ayp, byp, cxp, sxp))
+    ops = (*ops[:8], *ops[10:])   # all but h_re, h_im
+    L = ops[0].shape[-1]
+    if ops[8].data_ptr() % 16 or ops[9].data_ptr() % 16:
         raise ValueError(f"{what}: Ayp and Byp must start 16-byte aligned "
                          "(the kernel reads them as float4)")
     lib = _prepare(what, True, u_re.device, N, C, L, Lh, n)
@@ -194,12 +222,11 @@ def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
         rc = lib.k2_backward(
-            *(_ptr(x) for x in (g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
-                                ayp, byp, cxp, sxp, du_part, du, dv,
-                                dh_part, dh)),
+            *(_ptr(x) for x in (g, *ops, du_part, du, dv, dh_part, dh)),
             N, C, L, Lh, n, int(bool(include_h)), stream)
     _raise_on(lib, rc, what)
     launches.backward += 1
     launches.backward_h += int(bool(include_h))
-    return du[0], du[1], dv, *((dh[0], dh[1]) if include_h
+    du = du[..., :L0]
+    return du[0], du[1], dv, *((dh[0, :L0], dh[1, :L0]) if include_h
                                else (None, None))

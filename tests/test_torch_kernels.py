@@ -56,9 +56,23 @@ def test_wrappers_refuse_other_devices():
         starlet_cuda.starlet_adjoint(torch.zeros(5, 16, 16, device="meta"))
 
 
+@pytest.mark.parametrize("m,batch,expected", [
+    (128, 1, 16), (64, 1, 16), (62, 1, 16), (256, 3, 16), (128, 9, 8),
+    (24, 1, 4), (128, 500, 1), (64, 500, 1), (512, 500, 16), (544, 1, 16),
+    (545, 1, None)])
+def test_cluster_size_rule(m, batch, expected):
+    """C on an H100 (132 SMs, 232,448 bytes of shared memory a block):
+    16 CTAs for one image, one CTA each for 500, more where a band would
+    not fit, none past m 544, bands of at least 4 rows."""
+    assert starlet_cuda.cluster_size(m, batch, 132, 232448) == expected
+    if expected is not None:
+        assert starlet_cuda.cta_bytes(m, expected) <= 232448
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,batch", [(64, 1), (64, 500), (128, 1),
-                                     (128, 500)])
+                                     (128, 500), (62, 1), (62, 3), (256, 1),
+                                     (256, 3)])
 def test_cuda_kernels_match_plain(cuda, m, batch):
     gen = torch.Generator().manual_seed(m + batch)
     x = torch.randn(batch, m, m, generator=gen).to(cuda)
@@ -77,10 +91,38 @@ def test_cuda_kernels_match_plain(cuda, m, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [24, 64])
+@pytest.mark.parametrize("cluster", starlet_cuda.CLUSTER_SIZES)
+def test_cuda_kernels_match_plain_at_every_cluster_size(cuda, cluster):
+    """Two images of m 128 (J 7, so the taps of the last levels reach
+    across every band) through the library at each C, which the rule
+    picks only at some batches; the library's CTA bytes equal those the
+    wrapper refuses by."""
+    gen = torch.Generator().manual_seed(cluster)
+    x = torch.randn(2, 128, 128, generator=gen).to(cuda)
+    g = torch.randn(2, 8, 128, 128, generator=gen).to(cuda)
+    out, adj = torch.empty_like(g), torch.empty_like(x)
+    lib = starlet_cuda._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, src, dst in ((lib.starlet_forward, x, out),
+                         (lib.starlet_adjoint, g, adj)):
+        assert fn(src.data_ptr(), dst.data_ptr(), 2, 128, 7, cluster,
+                  stream) == 0
+    torch.cuda.synchronize()
+    assert (out - twin.starlet_transform(x)).abs().max().item() \
+        <= TOL * x.abs().max().item()
+    assert (adj - twin.starlet_adjoint(g)).abs().max().item() \
+        <= TOL * g.abs().max().item()
+    for m in (24, 62, 128, 256, 544):
+        assert lib.starlet_cta_bytes(m, cluster) \
+            == starlet_cuda.cta_bytes(m, cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [24, 64, 256])
 def test_cuda_op_gradient_matches_cpu(cuda, m):
     """grad of sum W |T(x)| through the op: kernels on the card, twins on
-    the CPU; m = 24 is not a power of two."""
+    the CPU; m = 24 is not a power of two, m = 256 did not fit one block's
+    shared memory."""
     gen = torch.Generator().manual_seed(m)
     x = torch.randn(m, m, generator=gen)
     W = torch.rand(twin.n_starlet_scales(m) + 1, m, m, generator=gen)
@@ -103,7 +145,9 @@ def test_cuda_wrappers_reject_bad_input(cuda):
         starlet_cuda.starlet_forward(torch.zeros(64, 64, device=cuda).t()
                                      [:, :32])
     with pytest.raises(ValueError, match="shared memory"):
-        starlet_cuda.starlet_forward(torch.zeros(256, 256, device=cuda))
+        starlet_cuda.starlet_forward(torch.zeros(545, 545, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        starlet_cuda.starlet_adjoint(torch.zeros(10, 545, 545, device=cuda))
 
 
 def _k2_case(device, n_epochs, n_pix, seed):
@@ -144,10 +188,11 @@ def test_k2_wrappers_refuse_other_devices():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_pix", [64, 32])
+@pytest.mark.parametrize("n_pix", [64, 32, 31])
 @pytest.mark.parametrize("include_h", [True, False])
 def test_k2_kernels_match_plain(cuda, n_pix, include_h):
-    """ROI-100 (n 64) and the production stamp (n 32), 100 epochs."""
+    """ROI-100 (n 64), the production stamp (n 32) and an odd stamp (n 31:
+    L 124, padded to 128 on the k axis), 100 epochs."""
     ops, g = _k2_case(cuda, 100, n_pix, seed=n_pix)
     if not include_h:
         ops = (*ops[:8], None, None, *ops[10:])
@@ -178,11 +223,13 @@ def test_k2_kernels_match_plain(cuda, n_pix, include_h):
 
 
 @pytest.mark.gpu
-def test_k2_gradient_through_the_model_matches_cpu(cuda):
+@pytest.mark.parametrize("n_pix", [16, 15])
+def test_k2_gradient_through_the_model_matches_cpu(cuda, n_pix):
     """d/d(a, px, py, h) of a weighted sum of the render: kernels on the
-    card, plain twins on the CPU."""
-    sc = make_roi_scene(n_epochs=6, n_pix=16, s=2, n_sources=4, seed=5)
-    g = torch.randn(6, 16, 16, generator=torch.Generator().manual_seed(5))
+    card, plain twins on the CPU; n 15 is an odd stamp (L 60)."""
+    sc = make_roi_scene(n_epochs=6, n_pix=n_pix, s=2, n_sources=4, seed=5)
+    g = torch.randn(6, n_pix, n_pix,
+                    generator=torch.Generator().manual_seed(5))
     grads = []
     for device in ("cpu", cuda):
         model, kw, *_ = setup_model(sc["data"], sc["sigma_2"], sc["psf"],
@@ -216,6 +263,28 @@ def test_k2_wrappers_reject_bad_input(cuda):
         fused_render_cuda.backward(g[:, :-1], *ops[:8], *ops[10:])
     with pytest.raises(ValueError, match="cpu"):
         fused_render_cuda.forward(*ops[:5], ops[5].cpu(), *ops[6:])
+
+
+@pytest.mark.parametrize("n_pix", [31, 32])
+def test_k2_k_padding_leaves_render_and_gradient_unchanged(n_pix):
+    """The plain twins on the operands that the card's wrappers give the
+    kernels (k padded with zeros to a multiple of 8: L 124 -> 128 at n 31;
+    nothing at n 32), sliced back, equal them on the unpadded operands."""
+    ops, g = _k2_case("cpu", 3, n_pix, seed=7)
+    padded = fused_render_cuda.pad_k(ops)
+    L = ops[0].shape[-1]
+    assert padded[0].shape[-1] == -(-L // 8) * 8
+    assert padded[3].shape[-2] == padded[10].shape[-1] == padded[0].shape[-1]
+    ref = fused_render.render_plain(*ops)
+    assert (fused_render.render_plain(*padded) - ref).abs().max().item() \
+        <= 1e-6 * ref.abs().max().item()
+    refs = fused_render.render_backward_plain(g, *ops[:8], *ops[10:])
+    got = fused_render.render_backward_plain(g, *padded[:8], *padded[10:])
+    for i, (x, want) in enumerate(zip(got, refs)):
+        x = x[..., :L] if i < 2 else x[:L] if i > 2 else x
+        assert x.shape == want.shape
+        assert (x - want).abs().max().item() \
+            <= 1e-6 * want.abs().max().item()
 
 
 def _tf32(x):

@@ -82,3 +82,94 @@ def test_weighted_l1_gradient_matches_pallas_vjp(start, monkeypatch):
         .sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_ref),
                                atol=1e-5)
+
+
+def _mirror(i, m):
+    i = np.where(i < 0, -1 - i, i)
+    return np.where(i >= m, 2 * m - 1 - i, i)
+
+
+def _banded(planes, n_clusters, adjoint):
+    """The cluster kernels' schedule (``csrc/starlet.cu``) on one image, in
+    plain torch: the forward of ``planes`` (m, m), or the adjoint of
+    ``planes`` (J + 1, m, m).
+
+    Band r of C = ``n_clusters`` holds rows [r R, min((r + 1) R, m)),
+    R = ceil(m / C); the rows past m (short or empty last bands) are NaN,
+    so any read of them shows. A level smooths each band's rows along x
+    through the mirrored column indices, into the row-smoothed buffer of
+    its parity; the column pass then takes each tap's row from the band
+    that the row table (row i in [-m, 2m) -> owner, row in its band, through
+    the mirror) names, and updates the band in place.
+    """
+    m = planes.shape[-1]
+    n_scales = planes.shape[0] - 1 if adjoint else twin.n_starlet_scales(m)
+    w = twin._W
+    R = -(-m // n_clusters)
+    rows = _mirror(np.arange(-m, 2 * m), m)
+    owner, local = rows // R, rows % R
+    nan = torch.full((n_clusters * R - m, m), float("nan"))
+
+    def bands(plane):
+        return torch.cat([plane, nan]).reshape(n_clusters, R, m)
+
+    tmp = [bands(torch.zeros(m, m)) for _ in range(2)]
+    if adjoint:
+        g = planes
+        cur = bands(g[-1] - g[-2] if n_scales else g[-1])
+        levels = range(n_scales - 1, -1, -1)
+    else:
+        cur, out = bands(planes), []
+        levels = range(n_scales)
+    y = np.arange(n_clusters * R)[:m]
+    for j in levels:
+        d = 2**j
+        t = tmp[j % 2]
+        cols = [torch.from_numpy(_mirror(np.arange(m) + (k - 2) * d, m))
+                for k in range(5)]
+        t[:] = sum((w[k] * cur[:, :, cols[k]] for k in range(1, 5)),
+                   w[0] * cur[:, :, cols[0]])
+        taps = [t[owner[y + (k - 2) * d + m], local[y + (k - 2) * d + m]]
+                for k in range(5)]
+        s = taps[0] * w[0]
+        for k in range(1, 5):
+            s = s + w[k] * taps[k]
+        flat = cur.reshape(-1, m)[:m]
+        if adjoint:
+            s = s + g[j] - (g[j - 1] if j > 0 else 0)
+        else:
+            out.append(flat - s)
+        cur = bands(s)
+    result = cur.reshape(-1, m)[:m]
+    return result if adjoint else torch.stack(out + [result])
+
+
+@jax.jit
+def _jax_adjoint(x, g):
+    """``jax.vjp`` of JAX's starlet at x, applied to g (jitted: applied
+    eagerly it takes seconds at m 256 on the CPU)."""
+    return jax.vjp(jax_starlet, x)[1](g)[0]
+
+
+@pytest.mark.parametrize("n_clusters", [1, 8, 16])
+@pytest.mark.parametrize("m", [24, 62, 128, 256])
+def test_banded_schedule_matches_twin_and_jax(m, n_clusters):
+    """The cluster kernels' schedule, rehearsed on the CPU (bands, owner
+    table, halo rows from the owning band, two alternating buffers): the
+    forward against the twin and JAX's starlet, the adjoint against the
+    twin's and ``jax.vjp`` of JAX's starlet, unit-normal images."""
+    x = _image(m, seed=m)
+    J = twin.n_starlet_scales(m)
+    g = np.random.default_rng(m + 1).normal(0, 1, (J + 1, m, m)).astype(
+        np.float32)
+    fwd = _banded(torch.from_numpy(x), n_clusters, adjoint=False).numpy()
+    adj = _banded(torch.from_numpy(g), n_clusters, adjoint=True).numpy()
+    np.testing.assert_allclose(fwd, twin.starlet_transform(
+        torch.from_numpy(x)).numpy(), atol=1e-6)
+    np.testing.assert_allclose(adj, twin.starlet_adjoint(
+        torch.from_numpy(g)).numpy(), atol=1e-6)
+    np.testing.assert_allclose(fwd, np.asarray(jax_starlet(jnp.asarray(x))),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        adj, np.asarray(_jax_adjoint(jnp.asarray(x), jnp.asarray(g))),
+        atol=1e-6)
