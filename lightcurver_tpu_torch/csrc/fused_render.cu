@@ -82,17 +82,60 @@
 // planes (r_hat, pc, ps, h_re, h_im: 66 of the 92 MB that reach the SMs
 // per call) across the blocks of a cluster, and wgmma, come next.
 //
-// The backward (k2_backward_tile): one epoch's complex spectrum (264 KB at
-// L = 256) does not fit an SM, so a block takes one epoch and one tile of
-// kTile = 32 columns of the half axis j (one column per lane). It turns G
-// into dA, dB for its tile, then dX and dspec for all k, and writes dv for
-// its columns (complete), its share of du (summed over tiles afterwards)
-// and, with h, the epoch's share of dh_hat (summed over epochs afterwards,
-// in epoch order, by sum_middle). No float atomics anywhere: every result
-// is the same from run to run. The backward keeps G and the Cxp/Sxp tiles
-// in the memory that dspec takes over later (101 KB a block at n = 64,
-// L = 256: two blocks per SM), and each warp owns 8 contiguous rows of dX,
-// so Ayp and Byp arrive as float4. Its products are fp32 FMAs.
+// What bounds the backward. The same two products as the forward,
+// transposed: [dA | dB] = G [Cxp^T | -Sxp^T] (2 n^2 Lh multiply-adds per
+// epoch) and [dXr; dXi] = [[Ayp^T, Byp^T], [-Byp^T, Ayp^T]] [dA; dB]
+// (4 n L Lh), then on the CUDA cores dspec, dh_hat and the reductions for
+// du and dv (4 C L Lh): 1.06 M, 8.45 M and 1.06 M multiply-adds per epoch
+// at ROI-100. At N 100, n 64,
+// L 256 that is 11.5 us in 3xTF32 on the tensor cores against 32.6 us in
+// fp32 on the CUDA cores; the bytes take 9.9 us.
+//
+// The backward's design (k2_backward_slab<KC>), against the tile design it
+// replaced (one block per 32 columns of the half axis, fp32 FMAs fed by
+// float4 loads of Ayp, Byp from L2, every tile recomputing its share of du
+// for a second launch to sum):
+// 1. A block owns one epoch and one slab of the half axis j: a run of
+//    columns, a multiple of 8, as wide as shared memory and the register
+//    tiles allow (kMaxSlab), the slabs of one call equal within 8 columns
+//    (the wrapper's rule, ops/fused_render_cuda.py::backward_slabs). At
+//    ROI-100 and at n 32 one slab covers all of Lh padded to a multiple of
+//    8: no ragged tile, no column computed twice. Grid (slabs, N), 512
+//    threads: at ROI-100 one block per SM, whose 16 warps hide more of the
+//    latency of the tensor cores and of device memory than 8 did (0.18
+//    against 0.23 ms at ROI-100 with h, where chunks of 16 rows took 0.26
+//    and cp.async prefetching of t_hat, Ayp and Byp 0.23 at 256 threads;
+//    tools/torch_k2_backward_ab.py, PERF.md).
+// 2. Phase A, on the tensor cores: G and the slab's rows of Cxp, Sxp come
+//    into shared memory, and [dA | dB] for the slab is computed there,
+//    where it stays for the whole block.
+// 3. Phase B, in chunks of KC rows of k, each between block barriers (the
+//    synchronous form: no copy overlaps the products): the chunk's
+//    columns of Ayp, Byp and u come into shared memory; the warps compute
+//    the chunk's [dXr; dXi] on the tensor cores (the A fragments read Ayp,
+//    Byp transposed), then all warps, on the CUDA cores, turn it into
+//    dspec and, with h, the epoch's rows of dh_part, sum du for the
+//    chunk's rows over the slab's columns, and add to dv's running sums.
+// 4. Precision as in the forward: operands split hi/lo in registers, each
+//    k-step's three products summed from zero on the tensor cores and
+//    added in fp32 on the CUDA cores. Strides keep the fragment loads free
+//    of bank conflicts: A operands 4 mod 8 (G) or, read transposed, 8 mod
+//    16 (Ayp, Byp); B operands 8 mod 16 (dA, dB) or, read transposed,
+//    4 mod 8 (the rows of Cxp, Sxp).
+// 5. With one slab a block's du and dv are complete and written once: one
+//    launch, no du scratch. With more, each slab writes its share of du to
+//    du_part, which sum_middle adds up. dh_hat is summed over epochs from
+//    dh_part by sum_middle, in epoch order. No float atomics anywhere:
+//    every result is the same from run to run.
+// What is left (tools/torch_k2_backward_probe.py times the kernel with
+// parts switched off): at ROI-100 with h, 0.18 ms, of which switching off
+// the elementwise pass saves about 60 us (its loads of t_hat, r_hat, pc,
+// ps wait on memory, and it writes the 26 MB of dh_part), the chunks'
+// products about 50 us, the du and dv sums 30 us and phase A 10 us; the
+// launch, the staging and the barriers alone take 20 us and the dh sum
+// 9 us. Without h, 0.12 ms. Warp specialisation with a cp.async chunk
+// pipeline (as in the forward), wgmma, and a dh sum without dh_part come
+// next.
 //
 // The k axis (L) is taken in steps of 8. An odd stamp at s = 2 gives
 // L = 4 mod 8, so the wrapper pads k with zeros to a multiple of 8 (zero
@@ -109,12 +152,11 @@
 
 namespace {
 
-// The backward, k2_backward_tile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;           // half-axis columns per block
-constexpr int kTileP = kTile + 1;   // row stride of buffers also read along k
-constexpr int kRows = 8;            // rows per warp and pass in the block GEMMs
+// The backward, k2_backward_slab<KC>
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdChunk = 32;       // KC: rows of k per chunk
+constexpr int kMaxSlab = 160;       // columns of a slab: 20 n-tiles of 8
 
 // The forward, k2_forward_rows<NT, R>: R = 64 or 32 output rows per block,
 // 640 threads: 12 warps on the tensor cores, 8 building X
@@ -187,17 +229,42 @@ inline int fwd_rows(int L, int Lh, int n) {
   return fwd_geom(1, L, Lh, R).nt <= kMaxNT ? R : -1;
 }
 
-// The backward's last region holds G (n, n) and the Cxp, Sxp tiles
-// (n, kTileP) until dA, dB are built, then dspec re, im (L, kTileP).
-int bwd_region_floats(int L, int n) {
-  const int early = 2 * n * kTileP + n * n;
-  const int late = 2 * L * kTileP;
-  return early > late ? early : late;
+// Layout of one backward block's shared memory, in floats, for slabs of at
+// most w columns. Throughout: v of the slab (w, c4), dv's running sums
+// (c4 / 4, w, 4), dA and dB (ny, ds). Phase A, the region after them: G
+// (ny, gs) and the slab's rows of Cxp, Sxp (w, gs). Phase B reuses the
+// region: the chunk's columns of Ayp, Byp (ny, as), of u_re, u_im (KC, c4)
+// and dX re, im (KC, ds), which becomes dspec. The python twin is
+// ops/fused_render_cuda.py::backward_smem_bytes.
+struct BwdGeom {
+  int ny;       // rows y of G, dA, dB: n rounded up to 16, zero past n
+  int c4;       // terms c: C rounded up to 4, zero past C
+  int w;        // columns of the widest slab, a multiple of 8
+  int gs;       // row stride of G and of the Cxp, Sxp rows, ny + 4
+  int ds;       // row stride of dA, dB and dX, = 8 mod 16
+  int as;       // row stride of the Ayp, Byp columns, KC + 8
+  int total;    // floats of the block
+};
+
+__host__ __device__ inline BwdGeom bwd_geom(int C, int n, int w, int kc) {
+  BwdGeom g;
+  g.ny = (n + 15) / 16 * 16;
+  g.c4 = (C + 3) / 4 * 4;
+  g.w = w;
+  g.gs = g.ny + 4;
+  g.ds = w % 16 == 8 ? w : w + 8;
+  g.as = kc + 8;
+  const int phase_a = g.ny * g.gs + 2 * w * g.gs;
+  const int phase_b = 2 * g.ny * g.as + 2 * kc * g.c4 + 2 * kc * g.ds;
+  g.total = 2 * w * g.c4 + 2 * g.ny * g.ds +
+            (phase_a > phase_b ? phase_a : phase_b);
+  return g;
 }
 
-int bwd_smem_floats(int C, int L, int n) {
-  // u_re, u_im (C, L); v tile (C, kTile); dA, dB (n, kTile); the region
-  return 2 * C * L + C * kTile + 2 * n * kTile + bwd_region_floats(L, n);
+// Columns of the widest of n_slabs slabs over Lh padded to a multiple of 8
+__host__ __device__ inline int bwd_slab_width(int Lh, int n_slabs) {
+  const int units = (Lh + 7) / 8;
+  return 8 * ((units + n_slabs - 1) / n_slabs);
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
@@ -303,6 +370,26 @@ __device__ __forceinline__ void load_b_split(uint32_t (&hi)[2],
                                              const float* p, int stride) {
   split(p[0], hi[0], lo[0]);
   split(p[4 * stride], hi[1], lo[1]);
+}
+
+// The A fragment from a column-major tile at p (element (row m, column k)
+// at p[k * stride + m]): p points at row g, column t of the lane
+__device__ __forceinline__ void load_at_split(uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4],
+                                              const float* p, int stride) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8], hi[1], lo[1]);
+  split(p[4 * stride], hi[2], lo[2]);
+  split(p[4 * stride + 8], hi[3], lo[3]);
+}
+
+// The B fragment from an n-major tile at p (element (k, column n) at
+// p[n * stride + k]): p points at k row t of column g of the lane
+__device__ __forceinline__ void load_bt_split(uint32_t (&hi)[2],
+                                              uint32_t (&lo)[2],
+                                              const float* p) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4], hi[1], lo[1]);
 }
 
 // Named barriers between the warps that build X and those that contract
@@ -596,11 +683,14 @@ k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
   }
 }
 
-// Epoch blockIdx.y, columns j0 = blockIdx.x * kTile ... of the half axis.
-// du_part: (2, N, n_tiles, C, L), this tile's share of du_re and du_im;
-// dv: (N, C, Lh); dh_part: (2, N, L, Lh), the epoch's share of dh_hat.
-__global__ void __launch_bounds__(kThreads, 2)
-k2_backward_tile(const float* __restrict__ g, const float* __restrict__ u_re,
+// Epoch blockIdx.y, slab blockIdx.x of gridDim.x over the half axis (the
+// slabs split Lh padded to a multiple of 8 into runs of 8 columns, equal
+// within one run). du: (2, N, slabs, C, L), the slabs' shares of du_re and
+// du_im, which with one slab is du itself, (2, N, C, L); dv: (N, C, Lh),
+// written whole; dh_part: (2, N, L, Lh), the epoch's share of dh_hat.
+template <int KC>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+k2_backward_slab(const float* __restrict__ g, const float* __restrict__ u_re,
                  const float* __restrict__ u_im, const float* __restrict__ v,
                  const float* __restrict__ t_re,
                  const float* __restrict__ t_im,
@@ -608,153 +698,284 @@ k2_backward_tile(const float* __restrict__ g, const float* __restrict__ u_re,
                  const float* __restrict__ pc, const float* __restrict__ ps,
                  const float* __restrict__ ayp, const float* __restrict__ byp,
                  const float* __restrict__ cxp, const float* __restrict__ sxp,
-                 float* __restrict__ du_part, float* __restrict__ dv,
+                 float* __restrict__ du, float* __restrict__ dv,
                  float* __restrict__ dh_part, int C, int L, int Lh, int n,
                  int include_h) {
+  constexpr int kMGroups = KC / 16;                 // m-tiles of a chunk
+  constexpr int kNGroups = kBwdWarps / kMGroups;    // n-groups of warps
+  constexpr int kNT = (kMaxSlab / 8 + kNGroups - 1) / kNGroups;
   extern __shared__ float smem[];
   const int N = gridDim.y;
+  const int n_slabs = gridDim.x;
   const int e = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int n_tiles = gridDim.x;
-  const int j0 = tile * kTile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int j = j0 + lane;
-  const bool j_in = j < Lh;
+  const int slab = blockIdx.x;
+  const int units = (Lh + 7) / 8;
+  const int base = units / n_slabs, rem = units % n_slabs;
+  const int j0 = 8 * (slab * base + min(slab, rem));
+  const int w = 8 * (base + (slab < rem ? 1 : 0));   // this slab's columns
+  const BwdGeom geo = bwd_geom(C, n, bwd_slab_width(Lh, n_slabs), KC);
+  const int ny = geo.ny, c4 = geo.c4, gs = geo.gs, ds = geo.ds, as = geo.as;
+  const int cgs = c4 / 4;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;     // the fragments' row / column group
+  const int tig = lane & 3;      // and the lane within it
 
-  float* su_re = smem;
-  float* su_im = su_re + C * L;
-  float* sv = su_im + C * L;
-  float* sda = sv + C * kTile;
-  float* sdb = sda + n * kTile;
-  float* sdsr = sdb + n * kTile;      // the region: dspec once dA, dB exist
-  float* sdsi = sdsr + L * kTileP;
-  float* scx = sdsr;                  // before: the Cxp, Sxp tiles and G
-  float* ssx = scx + n * kTileP;
-  float* sg = ssx + n * kTileP;
+  float* sv = smem;                     // v: [jj][c]
+  float* sdv = sv + geo.w * c4;         // dv: [c / 4][jj][c % 4]
+  float* sda = sdv + geo.w * c4;
+  float* sdb = sda + ny * ds;
+  float* region = sdb + ny * ds;
+  float* sg = region;                   // phase A
+  float* scx = sg + ny * gs;
+  float* ssx = scx + geo.w * gs;
+  float* say = region;                  // phase B
+  float* sby = say + ny * as;
+  float* sur = sby + ny * as;           // u: [kk][c]
+  float* sui = sur + KC * c4;
+  float* sxr = sui + KC * c4;           // dX, then dspec: [kk][jj]
+  float* sxi = sxr + KC * ds;
 
   const float* ge = g + static_cast<size_t>(e) * n * n;
-  for (int p = threadIdx.x; p < n * n; p += kThreads) sg[p] = ge[p];
-  const size_t ue = static_cast<size_t>(e) * C * L;
-  for (int p = threadIdx.x; p < C * L; p += kThreads) {
-    su_re[p] = u_re[ue + p];
-    su_im[p] = u_im[ue + p];
+  for (int p = tid; p < ny * gs; p += kBwdThreads) {
+    const int y = p / gs;
+    const int x = p - y * gs;
+    sg[p] = y < n && x < n ? ge[y * n + x] : 0.f;
   }
-  for (int c = warp; c < C; c += kWarps)
-    sv[c * kTile + lane] =
-        j_in ? v[(static_cast<size_t>(e) * C + c) * Lh + j] : 0.f;
-  for (int p = threadIdx.x; p < n * kTile; p += kThreads) {
-    const int jj = p / n;
-    const int x = p - jj * n;
-    const bool in = j0 + jj < Lh;
+  for (int p = tid; p < w * gs; p += kBwdThreads) {
+    const int jj = p / gs;
+    const int x = p - jj * gs;
+    const bool in = j0 + jj < Lh && x < n;
     const size_t q = static_cast<size_t>(j0 + jj) * n + x;
-    scx[x * kTileP + jj] = in ? cxp[q] : 0.f;
-    ssx[x * kTileP + jj] = in ? sxp[q] : 0.f;
+    scx[p] = in ? cxp[q] : 0.f;
+    ssx[p] = in ? sxp[q] : 0.f;
+  }
+  for (int p = tid; p < geo.w * c4; p += kBwdThreads) {
+    const int c = p / geo.w;
+    const int jj = p - c * geo.w;
+    sv[jj * c4 + c] = c < C && j0 + jj < Lh
+                          ? v[(static_cast<size_t>(e) * C + c) * Lh + j0 + jj]
+                          : 0.f;
+    sdv[p] = 0.f;
   }
   __syncthreads();
 
-  // dA[y, jj] = sum_x G[y, x] Cxp[j, x];  dB[y, jj] = -sum_x G[y, x] Sxp[j, x]
-  for (int y0 = 0; y0 < n; y0 += kWarps * kRows) {
-    float acc_a[kRows], acc_b[kRows];
+  // Phase A: dA = G Cxp^T, dB = -G Sxp^T for the slab's columns; a warp
+  // takes (m-tile of 16 rows y, n-tile of 8 columns) jobs, k = x in steps
+  // of 8, G and the Cxp, Sxp rows zero past n
+  const int mtiles = ny / 16;
+  for (int job = warp; job < mtiles * (w / 8); job += kBwdWarps) {
+    const int mt = job % mtiles;
+    const int col = job / mtiles * 8;
+    float acc_a[4] = {}, acc_b[4] = {};
+    for (int ks = 0; ks < ny; ks += 8) {
+      uint32_t gh[4], gl[4], ch[2], cl[2], sh[2], sl[2];
+      load_a_split(gh, gl, sg + (mt * 16 + gid) * gs + ks + tig, gs);
+      const int cb = (col + gid) * gs + ks + tig;
+      load_bt_split(ch, cl, scx + cb);
+      load_bt_split(sh, sl, ssx + cb);
+      float pa[4] = {}, pb[4] = {};
+      mma3(pa, gh, gl, ch, cl);
+      mma3(pb, gh, gl, sh, sl);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) acc_a[i] = acc_b[i] = 0.f;
-    for (int x = 0; x < n; ++x) {
-      const float cx = scx[x * kTileP + lane], sx = ssx[x * kTileP + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int y = y0 + warp + kWarps * i;
-        if (y < n) {
-          const float gv = sg[y * n + x];
-          acc_a[i] = fmaf(gv, cx, acc_a[i]);
-          acc_b[i] = fmaf(-gv, sx, acc_b[i]);
-        }
+      for (int q = 0; q < 4; ++q) {
+        acc_a[q] += pa[q];
+        acc_b[q] -= pb[q];
       }
     }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int y = y0 + warp + kWarps * i;
-      if (y < n) {
-        sda[y * kTile + lane] = acc_a[i];
-        sdb[y * kTile + lane] = acc_b[i];
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int s = (mt * 16 + gid + 8 * (q >> 1)) * ds + col + 2 * tig +
+                    (q & 1);
+      sda[s] = acc_a[q];
+      sdb[s] = acc_b[q];
     }
   }
-  __syncthreads();   // G and the Cxp/Sxp tiles are dead from here on
+  __syncthreads();   // G and the Cxp, Sxp rows are dead from here on
 
-  // dX for the kRows contiguous rows k = k0 + 8 w ... of warp w (L is a
-  // multiple of kRows and Ayp, Byp are 16-byte aligned: two float4 loads
-  // per matrix and y), then dspec and the epoch's share of dh_hat
+  // Phase B, chunks of KC rows of k. Warp (bm, bn) of the product takes
+  // rows bm * 16 ... of the chunk and the n-tiles bn + kNGroups i.
+  const int bm = warp % kMGroups;
+  const int bn = warp / kMGroups;
   const size_t te = static_cast<size_t>(e) * L * Lh;
   const size_t plane = static_cast<size_t>(L) * Lh;
-  for (int k0 = 0; k0 < L; k0 += kWarps * kRows) {
-    const int kb = k0 + warp * kRows;
-    if (kb >= L) continue;   // uniform across the warp; no barrier inside
-    float dxr[kRows], dxi[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) dxr[i] = dxi[i] = 0.f;
-    for (int y = 0; y < n; ++y) {
-      const float da = sda[y * kTile + lane], db = sdb[y * kTile + lane];
-      const float4* ar =
-          reinterpret_cast<const float4*>(ayp + static_cast<size_t>(y) * L + kb);
-      const float4* br =
-          reinterpret_cast<const float4*>(byp + static_cast<size_t>(y) * L + kb);
-      const float4 a0 = __ldg(ar), a1 = __ldg(ar + 1);
-      const float4 b0 = __ldg(br), b1 = __ldg(br + 1);
-      const float ay[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float by[kRows] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        dxr[i] = fmaf(ay[i], da, fmaf(by[i], db, dxr[i]));
-        dxi[i] = fmaf(ay[i], db, fmaf(-by[i], da, dxi[i]));
-      }
+  const size_t cl = static_cast<size_t>(C) * L;
+  float* du_re = du + (static_cast<size_t>(e) * n_slabs + slab) * cl;
+  float* du_im = du_re + static_cast<size_t>(N) * n_slabs * cl;
+  for (int k0 = 0; k0 < L; k0 += KC) {
+    const int kc = min(KC, L - k0);   // a multiple of 8
+    for (int p = tid; p < ny * KC; p += kBwdThreads) {
+      const int y = p / KC;
+      const int kk = p - y * KC;
+      const bool in = y < n && kk < kc;
+      const size_t q = static_cast<size_t>(y) * L + k0 + kk;
+      say[y * as + kk] = in ? ayp[q] : 0.f;
+      sby[y * as + kk] = in ? byp[q] : 0.f;
     }
+    for (int p = tid; p < c4 * KC; p += kBwdThreads) {
+      const int c = p / KC;
+      const int kk = p - c * KC;
+      const bool in = c < C && kk < kc;
+      const size_t q = (static_cast<size_t>(e) * C + c) * L + k0 + kk;
+      sur[kk * c4 + c] = in ? u_re[q] : 0.f;
+      sui[kk * c4 + c] = in ? u_im[q] : 0.f;
+    }
+    __syncthreads();
+
+    // dXr = Ayp^T dA + Byp^T dB, dXi = Ayp^T dB - Byp^T dA, k = y in steps
+    // of 8; rows of the chunk past L are zero (Ayp, Byp staged as zero)
+    {
+      float acc_r[kNT][4], acc_i[kNT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int k = kb + i;
-      float dsr = 0.f, dsi = 0.f;
-      if (j_in) {
-        const size_t q = static_cast<size_t>(k) * Lh + j;
-        const float tr = t_re[te + q], ti = t_im[te + q], r = r_hat[q];
-        const float pr = tr * r, pi = ti * r;
-        dsr = dxr[i] * pr + dxi[i] * pi;
-        dsi = dxi[i] * pr - dxr[i] * pi;
-        if (include_h) {
-          const float gr = tr * pc[q] - ti * ps[q];
-          const float gi = tr * ps[q] + ti * pc[q];
-          dh_part[te + q] = dxr[i] * gr + dxi[i] * gi;
-          dh_part[N * plane + te + q] = dxi[i] * gr - dxr[i] * gi;
+      for (int i = 0; i < kNT; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc_r[i][q] = acc_i[i][q] = 0.f;
+      for (int ks = 0; ks < ny; ks += 8) {
+        const int ar = (ks + tig) * as + bm * 16 + gid;
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        load_at_split(ah, al, say + ar, as);
+        load_at_split(bh, bl, sby + ar, as);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          const int col = (bn + kNGroups * i) * 8;
+          if (col >= w) break;
+          const int xb = (ks + tig) * ds + col + gid;
+          uint32_t dah[2], dal[2], dbh[2], dbl[2];
+          load_b_split(dah, dal, sda + xb, ds);
+          load_b_split(dbh, dbl, sdb + xb, ds);
+          float p1[4] = {}, p2[4] = {}, p3[4] = {}, p4[4] = {};
+          mma3(p1, ah, al, dah, dal);
+          mma3(p2, bh, bl, dbh, dbl);
+          mma3(p3, ah, al, dbh, dbl);
+          mma3(p4, bh, bl, dah, dal);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc_r[i][q] += p1[q] + p2[q];
+            acc_i[i][q] += p3[q] - p4[q];
+          }
         }
       }
-      sdsr[k * kTileP + lane] = dsr;
-      sdsi[k * kTileP + lane] = dsi;
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const int col = (bn + kNGroups * i) * 8;
+        if (col >= w) break;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int s = (bm * 16 + gid + 8 * (q >> 1)) * ds + col + 2 * tig +
+                        (q & 1);
+          sxr[s] = acc_r[i][q];
+          sxi[s] = acc_i[i][q];
+        }
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // dv[e, c, j] = sum_k dspec_re[k, jj] u_re[c, k] + dspec_im[k, jj] u_im[c, k]
-  for (int c = warp; c < C; c += kWarps) {
-    float acc = 0.f;
-    for (int k = 0; k < L; ++k)
-      acc = fmaf(sdsr[k * kTileP + lane], su_re[c * L + k],
-                 fmaf(sdsi[k * kTileP + lane], su_im[c * L + k], acc));
-    if (j_in) dv[(static_cast<size_t>(e) * C + c) * Lh + j] = acc;
-  }
-
-  // this tile's share of du[e, c, k] = sum_jj dspec[k, jj] v[c, jj]
-  const size_t cl = static_cast<size_t>(C) * L;
-  float* dur = du_part + (static_cast<size_t>(e) * n_tiles + tile) * cl;
-  float* dui = dur + static_cast<size_t>(N) * n_tiles * cl;
-  for (int p = threadIdx.x; p < C * L; p += kThreads) {
-    const int c = p / L;
-    const int k = p - c * L;
-    float ar = 0.f, ai = 0.f;
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float vc = sv[c * kTile + jj];
-      ar = fmaf(sdsr[k * kTileP + jj], vc, ar);
-      ai = fmaf(sdsi[k * kTileP + jj], vc, ai);
+    // dspec = dX conj(t_hat r_hat) in place and, with h, the epoch's rows
+    // of dh_part; zero past Lh. Warp: rows kk; lane: columns jj.
+    for (int kk = warp; kk < kc; kk += kBwdWarps) {
+      const size_t row = static_cast<size_t>(k0 + kk) * Lh;
+      for (int jj = lane; jj < w; jj += 32) {
+        const int j = j0 + jj;
+        const int s = kk * ds + jj;
+        float dsr = 0.f, dsi = 0.f;
+        if (j < Lh) {
+          const float dxr = sxr[s], dxi = sxi[s];
+          const size_t q = row + j;
+          const float tr = t_re[te + q], ti = t_im[te + q], r = r_hat[q];
+          const float pr = tr * r, pi = ti * r;
+          dsr = dxr * pr + dxi * pi;
+          dsi = dxi * pr - dxr * pi;
+          if (include_h) {
+            const float cr = pc[q], ci = ps[q];
+            const float gr = tr * cr - ti * ci;
+            const float gi = tr * ci + ti * cr;
+            dh_part[te + q] = dxr * gr + dxi * gi;
+            dh_part[N * plane + te + q] = dxi * gr - dxr * gi;
+          }
+        }
+        sxr[s] = dsr;
+        sxi[s] = dsi;
+      }
     }
-    dur[p] = ar;
-    dui[p] = ai;
+    __syncthreads();
+
+    // du[c, k0 + kk] = sum_jj dspec[kk, jj] v[c, jj]: eight lanes share
+    // (kk, four terms c), each summing every eighth column, and their sums
+    // are added by shuffles in a fixed order. The item count is a multiple
+    // of 32, so every warp runs whole.
+    for (int p = tid; p < KC * cgs * 8; p += kBwdThreads) {
+      const int part = p & 7;
+      const int item = p >> 3;
+      const int kk = item / cgs;
+      const int cg = item - kk * cgs;
+      float ar[4] = {}, ai[4] = {};
+      for (int jj = part; jj < w; jj += 8) {
+        const float xr = sxr[kk * ds + jj], xi = sxi[kk * ds + jj];
+        const float4 vc = *reinterpret_cast<const float4*>(sv + jj * c4 +
+                                                           4 * cg);
+        const float vq[4] = {vc.x, vc.y, vc.z, vc.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[q] = fmaf(xr, vq[q], ar[q]);
+          ai[q] = fmaf(xi, vq[q], ai[q]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ar[q] += __shfl_xor_sync(0xffffffffu, ar[q], o);
+          ai[q] += __shfl_xor_sync(0xffffffffu, ai[q], o);
+        }
+      if (part == 0 && kk < kc) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = 4 * cg + q;
+          if (c < C) {
+            du_re[static_cast<size_t>(c) * L + k0 + kk] = ar[q];
+            du_im[static_cast<size_t>(c) * L + k0 + kk] = ai[q];
+          }
+        }
+      }
+    }
+
+    // dv[c, jj] += sum_kk dspec_re[kk, jj] u_re[c, kk] + dspec_im u_im: a
+    // thread owns (four terms c, column jj) in every chunk, so the running
+    // sums need no barrier of their own
+    for (int p = tid; p < cgs * w; p += kBwdThreads) {
+      const int cg = p / w;
+      const int jj = p - cg * w;
+      float4* run = reinterpret_cast<float4*>(sdv + (cg * geo.w + jj) * 4);
+      float a[4] = {run->x, run->y, run->z, run->w};
+      for (int kk = 0; kk < kc; ++kk) {
+        const float xr = sxr[kk * ds + jj], xi = sxi[kk * ds + jj];
+        const float4 ur = *reinterpret_cast<const float4*>(sur + kk * c4 +
+                                                           4 * cg);
+        const float4 ui = *reinterpret_cast<const float4*>(sui + kk * c4 +
+                                                           4 * cg);
+        a[0] = fmaf(xr, ur.x, fmaf(xi, ui.x, a[0]));
+        a[1] = fmaf(xr, ur.y, fmaf(xi, ui.y, a[1]));
+        a[2] = fmaf(xr, ur.z, fmaf(xi, ui.z, a[2]));
+        a[3] = fmaf(xr, ur.w, fmaf(xi, ui.w, a[3]));
+      }
+      *run = make_float4(a[0], a[1], a[2], a[3]);
+    }
+    __syncthreads();   // the chunk's buffers are free
+  }
+
+  // dv of the slab, complete; each thread writes the sums it owns
+  for (int p = tid; p < cgs * w; p += kBwdThreads) {
+    const int cg = p / w;
+    const int jj = p - cg * w;
+    if (j0 + jj >= Lh) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 4 * cg + q;
+      if (c < C)
+        dv[(static_cast<size_t>(e) * C + c) * Lh + j0 + jj] =
+            sdv[(cg * geo.w + jj) * 4 + q];
+    }
   }
 }
 
@@ -819,8 +1040,6 @@ cudaError_t launch_forward(const float* u_re, const float* u_im,
 
 extern "C" {
 
-int k2_tile_width() { return kTile; }
-
 // Largest dynamic shared memory a block may opt in to on `device`, in
 // bytes, or -1 on error.
 int k2_smem_optin(int device) {
@@ -832,11 +1051,16 @@ int k2_smem_optin(int device) {
 }
 
 // Dynamic shared memory of one block of the forward (backward = 0) or
-// backward (backward = 1) kernel, in bytes; -1 where the forward has no
-// instance (L too wide for its register tiles).
-int k2_smem_bytes(int backward, int C, int L, int Lh, int n) {
+// backward (backward = 1, over n_slabs slabs of the half axis) kernel, in
+// bytes; -1 where the forward has no instance (L too wide for its register
+// tiles) or a backward slab would be wider than kMaxSlab.
+int k2_smem_bytes(int backward, int C, int L, int Lh, int n, int n_slabs) {
   const int bytes = static_cast<int>(sizeof(float));
-  if (backward) return bwd_smem_floats(C, L, n) * bytes;
+  if (backward) {
+    const int w = bwd_slab_width(Lh, n_slabs);
+    if (n_slabs < 1 || w > kMaxSlab) return -1;
+    return bwd_geom(C, n, w, kBwdChunk).total * bytes;
+  }
   const int R = fwd_rows(L, Lh, n);
   if (R < 0) return -1;
   return fwd_geom(C, L, Lh, R).total * bytes;
@@ -855,7 +1079,7 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
                const float* cxp, const float* sxp, float* out, int N, int C,
                int L, int Lh, int n, int include_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = k2_smem_bytes(0, C, L, Lh, n);
+  const int smem = k2_smem_bytes(0, C, L, Lh, n, 0);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int R = fwd_rows(L, Lh, n);
 #define K2_ARGS                                                             \
@@ -894,29 +1118,37 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// du_part: scratch (2, N, n_tiles, C, L); du: (2, N, C, L) = du_re, du_im;
-// dv: (N, C, Lh); dh_part: scratch (2, N, L, Lh); dh: (2, L, Lh) = dh_re,
-// dh_im. dh_part and dh are not touched when include_h is 0.
+// n_slabs: slabs of the half axis, one block each per epoch
+// (ops/fused_render_cuda.py::backward_slabs). du_part: scratch
+// (2, N, n_slabs, C, L), not touched (and may be null) with one slab;
+// du: (2, N, C, L) = du_re, du_im; dv: (N, C, Lh); dh_part: scratch
+// (2, N, L, Lh); dh: (2, L, Lh) = dh_re, dh_im. dh_part and dh are not
+// touched when include_h is 0. One launch, plus one sum_middle for du with
+// more than one slab and one for dh with h.
 int k2_backward(const float* g, const float* u_re, const float* u_im,
                 const float* v, const float* t_re, const float* t_im,
                 const float* r_hat, const float* pc, const float* ps,
                 const float* ayp, const float* byp, const float* cxp,
                 const float* sxp, float* du_part, float* du, float* dv,
                 float* dh_part, float* dh, int N, int C, int L, int Lh, int n,
-                int include_h, void* stream) {
+                int include_h, int n_slabs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = k2_smem_bytes(1, C, L, Lh, n);
-  cudaError_t e = allow_smem(k2_backward_tile, smem, &g_backward_smem);
+  const int smem = k2_smem_bytes(1, C, L, Lh, n, n_slabs);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem(k2_backward_slab<kBwdChunk>, smem,
+                             &g_backward_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = (Lh + kTile - 1) / kTile;
-  k2_backward_tile<<<dim3(n_tiles, N), kThreads, smem, s>>>(
+  k2_backward_slab<kBwdChunk><<<dim3(n_slabs, N), kBwdThreads, smem, s>>>(
       g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp, sxp,
-      du_part, dv, dh_part, C, L, Lh, n, include_h);
+      n_slabs > 1 ? du_part : du, dv, dh_part, C, L, Lh, n, include_h);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  // du over tiles, for re and im at once: outer 2 N
-  e = launch_sum_middle(du_part, du, 2 * N, n_tiles, C * L, s);
-  if (e != cudaSuccess || !include_h) return static_cast<int>(e);
+  if (n_slabs > 1) {
+    // du over slabs, for re and im at once: outer 2 N
+    e = launch_sum_middle(du_part, du, 2 * N, n_slabs, C * L, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (!include_h) return static_cast<int>(cudaSuccess);
   // dh_hat over epochs, in epoch order
   return static_cast<int>(launch_sum_middle(dh_part, dh, 2, N, L * Lh, s));
 }

@@ -15,8 +15,10 @@ contiguity and every shape against the contract, and raise on what the
 kernels do not take, before anything is launched. The kernels take the
 k axis (L) in steps of 8; where L is not a multiple of 8 (an odd stamp at
 s = 2 gives L = 4 mod 8) the wrappers pad it with zeros (:func:`pad_k`)
-and slice the gradients back. The counts in :data:`launches` grow by one
-per call that launches the kernels and nowhere else.
+and slice the gradients back. The backward splits the half axis into
+slabs by :func:`backward_slabs`, a plain function of the shapes and the
+card's shared memory. The counts in :data:`launches` grow by one per call
+that launches the kernels and nowhere else.
 
 Numbers: kernel times in PERF.md were taken on an NVIDIA H100 and carry
 the card's name and power limit; no TPU figure applies here.
@@ -24,6 +26,7 @@ the card's name and power limit; no TPU figure applies here.
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +35,9 @@ from . import cuda_build
 SOURCE = cuda_build.CSRC / "fused_render.cu"
 MAX_EPOCHS = 65535   # the epoch axis is the grid's y dimension
 K_STEP = 8           # the kernels take the k axis in steps of 8
+# the backward's geometry, as csrc/fused_render.cu has it
+BWD_CHUNK = 32       # kBwdChunk: rows of k per chunk
+MAX_SLAB = 160       # kMaxSlab: columns of a slab (its register tiles)
 # the axis of each forward operand (in the forward's order) that runs
 # over k, None for those without one
 _K_AXIS = (-1, -1, None, -2, -2, -2, -2, -2, -2, -2, -1, -1, None, None)
@@ -65,12 +71,11 @@ def _load():
             lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.k2_forward.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
-            lib.k2_backward.argtypes = [ptr] * 18 + [i32] * 6 + [ptr]
+            lib.k2_backward.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
             for fn in (lib.k2_forward, lib.k2_backward):
                 fn.restype = i32
-            for name, args in (("k2_tile_width", []),
-                               ("k2_smem_optin", [i32]),
-                               ("k2_smem_bytes", [i32] * 5)):
+            for name, args in (("k2_smem_optin", [i32]),
+                               ("k2_smem_bytes", [i32] * 6)):
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = i32
             lib.k2_error_string.argtypes = [i32]
@@ -130,25 +135,80 @@ def pad_k(ops):
         for x, axis in zip(ops, _K_AXIS))
 
 
-def _prepare(what, backward, device, N, C, L, Lh, n):
-    """The library, after the limits of the geometry are checked; L is
-    the padded length, a multiple of :data:`K_STEP`."""
-    if not 0 < N <= MAX_EPOCHS:
-        raise ValueError(f"{what}: {N} epochs, expected 1 to {MAX_EPOCHS}")
-    lib = _load()
+def slab_width(Lh, n_slabs):
+    """Columns of the widest of ``n_slabs`` slabs over the half axis Lh
+    padded to a multiple of 8 (runs of 8 columns shared out evenly)."""
+    units = -(-Lh // 8)
+    return 8 * -(-units // n_slabs)
+
+
+def backward_smem_bytes(C, n, width):
+    """Shared memory of one backward block whose slabs are at most
+    ``width`` columns wide, in bytes (``bwd_geom`` in the source): v and
+    dv's running sums (width, C rounded up to 4) and dA, dB (n rounded up
+    to 16, a stride of 8 mod 16), then the larger of phase A (G and the
+    slab's rows of Cxp, Sxp) and phase B (a chunk's columns of Ayp, Byp
+    and u, and its dX)."""
+    ny, c4 = -(-n // 16) * 16, -(-C // 4) * 4
+    gs, ds = ny + 4, width if width % 16 == 8 else width + 8
+    phase_a = ny * gs + 2 * width * gs
+    kc = BWD_CHUNK
+    phase_b = 2 * ny * (kc + 8) + 2 * kc * c4 + 2 * kc * ds
+    return 4 * (2 * width * c4 + 2 * ny * ds + max(phase_a, phase_b))
+
+
+def backward_slabs(C, Lh, n, smem_limit):
+    """Slabs of the half axis for the backward: the fewest whose widest
+    fits ``smem_limit`` bytes of shared memory and the register tiles
+    (:data:`MAX_SLAB` columns), so one slab where the whole padded half
+    axis fits (ROI-100, the production stamp); None where even slabs of 8
+    columns do not fit."""
+    units = -(-Lh // 8)
+    for n_slabs in range(1, units + 1):
+        width = slab_width(Lh, n_slabs)
+        if width <= MAX_SLAB and \
+                backward_smem_bytes(C, n, width) <= smem_limit:
+            return n_slabs
+    return None
+
+
+class BackwardPlan(NamedTuple):
+    """How :func:`backward` runs at some shapes: its slabs, its kernel
+    launches (the backward, then ``sum_middle`` for du with more than one
+    slab and for dh with h) and the bytes of its scratch (du_part with
+    more than one slab, dh_part with h)."""
+    n_slabs: int
+    launches: int
+    scratch_bytes: int
+
+
+def backward_plan(N, C, L, Lh, n, include_h, smem_limit):
+    """:class:`BackwardPlan` at these shapes (L padded to a multiple of
+    :data:`K_STEP`), or None where no slab fits ``smem_limit``."""
+    n_slabs = backward_slabs(C, Lh, n, smem_limit)
+    if n_slabs is None:
+        return None
+    du_part = 2 * N * n_slabs * C * L if n_slabs > 1 else 0
+    dh_part = 2 * N * L * Lh if include_h else 0
+    return BackwardPlan(n_slabs, 1 + (n_slabs > 1) + bool(include_h),
+                        4 * (du_part + dh_part))
+
+
+def smem_optin(device):
+    """Shared memory a block may opt in to on ``device``, in bytes."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     if index not in _smem_optin:
-        _smem_optin[index] = lib.k2_smem_optin(index)
-    need = lib.k2_smem_bytes(int(backward), C, L, Lh, n)
-    if need < 0:
-        raise ValueError(f"{what}: no kernel instance for L={L}: the half "
-                         "axis is wider than the forward's register tiles")
-    if need > _smem_optin[index]:
-        raise ValueError(f"{what}: 2M={C}, L={L}, n={n} need {need} bytes "
-                         f"of shared memory, the card allows "
-                         f"{_smem_optin[index]}")
-    return lib
+        _smem_optin[index] = _load().k2_smem_optin(index)
+    return _smem_optin[index]
+
+
+def _prepare(what, device, N):
+    """The library and the card's shared-memory opt-in, after the epoch
+    count is checked."""
+    if not 0 < N <= MAX_EPOCHS:
+        raise ValueError(f"{what}: {N} epochs, expected 1 to {MAX_EPOCHS}")
+    return _load(), smem_optin(device)
 
 
 def _ptr(x):
@@ -179,7 +239,14 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
                  h_re if include_h else None, h_im if include_h else None,
                  ayp, byp, cxp, sxp))
     L = ops[0].shape[-1]
-    lib = _prepare(what, False, u_re.device, N, C, L, Lh, n)
+    lib, optin = _prepare(what, u_re.device, N)
+    need = lib.k2_smem_bytes(0, C, L, Lh, n, 0)
+    if need < 0:
+        raise ValueError(f"{what}: no kernel instance for L={L}: the half "
+                         "axis is wider than the forward's register tiles")
+    if need > optin:
+        raise ValueError(f"{what}: 2M={C}, L={L}, n={n} need {need} bytes "
+                         f"of shared memory, the card allows {optin}")
     out = torch.empty(N, n, n, device=u_re.device, dtype=torch.float32)
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
@@ -194,8 +261,11 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
 def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
              sxp, include_h=True):
     """K2 backward on the card: ``(du_re, du_im, dv, dh_re, dh_im)``, the
-    h terms None without ``include_h``. Every sum, dh's over epochs
-    included, is taken in a fixed order: no atomics."""
+    h terms None without ``include_h``. One launch of the slab kernel
+    (3xTF32 products on the tensor cores), plus ``sum_middle`` for du
+    where the half axis takes more than one slab and for dh with h
+    (:func:`backward_plan`). Every sum, dh's over epochs included, is taken
+    in a fixed order: no atomics."""
     what = "fused_render backward"
     N, C, L, Lh, n = _geometry(what, u_re, v, ayp)
     shapes = _shapes(N, C, L, Lh, n)
@@ -208,22 +278,25 @@ def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
                  ayp, byp, cxp, sxp))
     ops = (*ops[:8], *ops[10:])   # all but h_re, h_im
     L = ops[0].shape[-1]
-    if ops[8].data_ptr() % 16 or ops[9].data_ptr() % 16:
-        raise ValueError(f"{what}: Ayp and Byp must start 16-byte aligned "
-                         "(the kernel reads them as float4)")
-    lib = _prepare(what, True, u_re.device, N, C, L, Lh, n)
+    lib, optin = _prepare(what, u_re.device, N)
+    plan = backward_plan(N, C, L, Lh, n, include_h, optin)
+    if plan is None:
+        raise ValueError(f"{what}: 2M={C}, n={n} need more shared memory "
+                         f"than the card allows ({optin} bytes) even in "
+                         "slabs of 8 columns")
+    n_slabs = plan.n_slabs
     dev = dict(device=u_re.device, dtype=torch.float32)
     du = torch.empty(2, N, C, L, **dev)
     dv = torch.empty(N, C, Lh, **dev)
     dh = torch.empty(2, L, Lh, **dev) if include_h else None
-    n_tiles = -(-Lh // lib.k2_tile_width())
-    du_part = torch.empty(2, N, n_tiles, C, L, **dev)
+    du_part = torch.empty(2, N, n_slabs, C, L, **dev) if n_slabs > 1 \
+        else None
     dh_part = torch.empty(2, N, L, Lh, **dev) if include_h else None
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
         rc = lib.k2_backward(
             *(_ptr(x) for x in (g, *ops, du_part, du, dv, dh_part, dh)),
-            N, C, L, Lh, n, int(bool(include_h)), stream)
+            N, C, L, Lh, n, int(bool(include_h)), n_slabs, stream)
     _raise_on(lib, rc, what)
     launches.backward += 1
     launches.backward_h += int(bool(include_h))
