@@ -26,6 +26,8 @@ prints no result:
    accuracy, plain TF32 would miss by ~3e-4), timed beside the twins,
    with their TFLOP/s and share of their bounds, and the backward's
    slabs, launches per call and scratch bytes;
+3c. K1 forward and adjoint at the PSF fit's shape, a batch of 16 frames of
+   m 128 (the wrapper's C: 8), against the twin and timed as in phase 3;
 4. a small scene (16 epochs, 32 px, s = 2, 4 sources, noise 0.03):
    ``fit_roi`` on the card through the kernels against ``fit_roi`` on the
    CPU through the plain twins, at the shipped recipe: fluxes within
@@ -42,13 +44,29 @@ prints no result:
    2000 backward; stage 1: more than none of each), K1 launches, the
    same bars, and the flux differences to phase 5's fit, whose median
    must stay within 0.15 mmag (a 0.15 % reduced-precision systematic
-   would be ~1.6 mmag).
+   would be ~1.6 mmag);
+6. the frame-batched PSF fit's pixel-phase loss and its gradient at full
+   width (16 frames of 8 stars, 64 px, s = 2) at one parameter point, on
+   the card (one K1 launch each way) against the CPU (1e-5 of the loss,
+   1e-4 of max|grad|), then a small ``build_psf_batched`` (3 frames of 4
+   stars, 24 px) on the card against the same fit on the CPU: reduced chi2
+   within 1 %, full PSF within 1e-2 of its peak, and the pixel phase's
+   first loss within 1e-4, after a converged Moffat phase (400 L-BFGS
+   iterations; ``SMALL_PSF_BUDGET`` says why); 6b the same on
+   ``irfft_backend="matmul"`` at ``dft_pad`` 16;
+7. the full-width ``build_psf_batched`` (16 frames of 8 stars, 64 px,
+   s = 2, 100 L-BFGS + 3000 AdaBelief iterations; the stamps of the JAX
+   package's ``bench.py::run_psf_bench``) on cuFFT: wall time and PSF
+   fits/s, K1 launches (at least 3000 each way), finite PSFs and a mean
+   reduced chi2 in [0.5, 1.0]; 7b the same on the matmul render at
+   ``dft_pad`` 16, the production default.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
-rate of the units that can run them, from the shapes of this run) and,
-last, the device line. There is no CPU path: without a card the script
-fails.
+rate of the units that can run them, from the shapes of this run) and
+its launches over every run of the main path (phases 5, 5b, 7 and 7b),
+and, last, the device line. There is no CPU path: without a card the
+script fails.
 """
 
 import json
@@ -62,6 +80,7 @@ HERE = Path(__file__).resolve().parent
 TOL = 1e-5
 K2_TOL = 1e-5       # 3xTF32 forward and backward: float32 accuracy
 DMAG_MATMUL_MAX = 0.15e-3   # median |dmag| of the matmul vs the fft fit
+PSF_CHI2_RANGE = (0.5, 1.0)  # the JAX package's records: 0.728-0.744
 
 # Published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -216,6 +235,144 @@ def phase_kernels(torch, starlet_cuda, plain):
     return records
 
 
+def phase_k1_psf(torch, starlet_cuda, plain, card):
+    """3c: K1 at the frame-batched PSF fit's shape (16 frames, m 128)."""
+    m, batch = 128, 16
+    n_scales = plain.n_starlet_scales(m)
+    cluster = starlet_cuda.cluster_for(torch.device("cuda"), m, batch)
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(batch, m, m, generator=gen).cuda()
+    g = torch.randn(batch, n_scales + 1, m, m, generator=gen).cuda()
+    errs = {}
+    for name, inp, kernel, twin in (
+            ("starlet_forward", x, lambda: starlet_cuda.starlet_forward(x),
+             lambda: plain.starlet_transform(x)),
+            ("starlet_adjoint", g, lambda: starlet_cuda.starlet_adjoint(g),
+             lambda: plain.starlet_adjoint(g))):
+        out = kernel()
+        torch.cuda.synchronize()
+        err = (out - twin()).abs().max().item()
+        tol = TOL * inp.abs().max().item()
+        check(err <= tol, f"{name} m={m} B={batch}: max|diff| {err:.3e} > "
+              f"{tol:.3e}")
+        ms, loop_ms = graph_ms(kernel, 200), cuda_ms(kernel, 200)
+        plain_ms = cuda_ms(twin, 20)
+        bound_ms, bound_by = k1_bound(m, batch, n_scales)
+        errs[name] = err
+        say("3c", f"{name} m={m} B={batch} C={cluster}: max|diff| {err:.3e} "
+            f"(bound {tol:.3e}); kernel {ms:.4f} ms (CUDA graph; "
+            f"{loop_ms:.4f} ms a call in a loop), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}; card {card})")
+    return errs
+
+
+def psf_loss_point(psf_pixel_phase_point, n_frames, backend, device):
+    """The batched pixel-phase loss (F,) and its gradients at full width
+    (8 stars, 64 px) at one parameter point, on ``device``."""
+    loss, free, consts = psf_pixel_phase_point(n_frames, 8, 64, backend,
+                                               device)
+    leaves = [v.requires_grad_(True) for d in free.values()
+              for v in d.values()]
+    value = loss(free, consts)
+    value.sum().backward()
+    return value.detach().cpu(), [x.grad.cpu() for x in leaves]
+
+
+# The small fit's budget. AdaBelief's first steps move every grid pixel
+# by the learning rate whatever its gradient's size (mu_hat / sqrt(nu_hat)
+# = +-1), so a relative 1e-7 change of the data (the rounding of cuFFT
+# against pocketfft, or of K1 against its twin) flips the pixels whose
+# gradient is near zero: after 200 Moffat and 100 pixel-phase iterations
+# of these 3 x 4 x 24 px stamps the full PSF moves by up to 1.1e-2 of its
+# peak and the chi2 by up to 1.4 %. The Moffat phase settles such a
+# change once it has converged: after 400 L-BFGS iterations it moves the
+# chi2 by < 1e-6 and the full PSF by <= 7.8e-4 of its peak (both on the
+# CPU, three draws: tools/torch_psf_rounding.py sensitivity). So the fit
+# is held there, with one pixel-phase evaluation (its first loss, K1
+# included).
+SMALL_PSF_BUDGET = dict(n_iter_analytic=400, n_iter_adabelief=1)
+
+
+def phase_psf_small(np, build_psf_batched, psf_bench_frames,
+                    psf_pixel_phase_point, starlet_cuda, backend, phase):
+    """6 / 6b: the PSF fit on the card against the CPU."""
+    pad = 16 if backend == "matmul" else None
+    want, want_grads = psf_loss_point(psf_pixel_phase_point, 16, backend,
+                                      "cpu")
+    starlet_cuda.launches.reset()
+    got, got_grads = psf_loss_point(psf_pixel_phase_point, 16, backend,
+                                    "cuda")
+    launches = (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint)
+    check(launches == (1, 1), f"PSF loss ({backend}): K1 launches {launches}"
+          ", (1, 1) expected")
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    gerr = max((g - w).abs().max().item() / w.abs().max().item()
+               for g, w in zip(got_grads, want_grads))
+    say(phase, f"PSF pixel-phase loss, 16 x 8 x 64 px, {backend}, card vs "
+        f"cpu: loss {err:.2e}, gradient {gerr:.2e} of max (one K1 launch "
+        "each way)")
+    check(err <= TOL and gerr <= 1e-4, f"PSF loss ({backend}): card vs cpu "
+          f"loss {err:.2e} > {TOL} or gradient {gerr:.2e} > 1e-4")
+
+    data, sigma = psf_bench_frames(3, 4, 24)
+    fits, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fits[device] = build_psf_batched(data, sigma, 2, device=device,
+                                         irfft_backend=backend, dft_pad=pad,
+                                         **SMALL_PSF_BUDGET)
+        walls[device] = time.perf_counter() - t0
+    card, cpu = fits["cuda"], fits["cpu"]
+    dchi2 = np.abs(card["chi2"] / cpu["chi2"] - 1).max()
+    peak = np.abs(cpu["full_psf"]).max(axis=(1, 2), keepdims=True)
+    dfull = (np.abs(card["full_psf"] - cpu["full_psf"]) / peak).max()
+    first = np.abs(card["loss_history_pixels"][:, 0]
+                   / cpu["loss_history_pixels"][:, 0] - 1).max()
+    say(phase, f"small build_psf_batched (3 x 4 x 24 px, {backend}), card "
+        f"vs cpu: max |dchi2|/chi2 {dchi2:.2e}, max |dfull|/peak "
+        f"{dfull:.2e}, pixel phase's first loss {first:.2e}; chi2 "
+        f"{np.round(card['chi2'], 4).tolist()}; wall card "
+        f"{walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+    check(dchi2 <= 0.01, f"small PSF fit ({backend}): chi2 differs by > 1 %")
+    check(dfull <= 1e-2, f"small PSF fit ({backend}): full PSF differs by "
+          "> 1e-2 of its peak")
+    check(first <= 1e-4, f"small PSF fit ({backend}): the pixel phase's "
+          "first loss differs by > 1e-4")
+
+
+def phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
+                   starlet_cuda, backend, phase, card):
+    """7 / 7b: the full-width frame-batched PSF fit (the frames of the JAX
+    package's PSF bench); returns the K1 launches of the fit."""
+    pad = 16 if backend == "matmul" else None
+    data, sigma = psf_bench_frames(16, 8, 64)
+    torch.cuda.synchronize()
+    starlet_cuda.launches.reset()
+    t0 = time.perf_counter()
+    out = build_psf_batched(data, sigma, 2, n_iter_analytic=100,
+                            n_iter_adabelief=3000, device="cuda",
+                            irfft_backend=backend, dft_pad=pad)
+    wall = time.perf_counter() - t0
+    n_fwd, n_adj = starlet_cuda.launches.forward, starlet_cuda.launches.adjoint
+    chi2 = float(np.mean(out["chi2"]))
+    say(phase, f"full-width build_psf_batched (16 frames x 8 stars, 64 px, "
+        f"s 2, 100 + 3000 iterations, {backend}"
+        f"{', dft_pad 16' if pad else ''}) on the card: {wall:.3f} s wall, "
+        f"{16 / wall:.4f} PSF fits/s (card {card}); K1 launches forward "
+        f"{n_fwd}, adjoint {n_adj}; mean reduced chi2 {chi2:.4f} (the JAX "
+        "package's records: 0.728-0.744); chi2 per frame "
+        f"{np.round(out['chi2'], 4).tolist()}")
+    check(n_fwd >= 3000 and n_adj >= 3000,
+          f"the PSF fit ({backend}) did not run through K1 every iteration")
+    check(all(np.all(np.isfinite(out[k])) for k in ("narrow_psf",
+                                                    "full_psf", "chi2")),
+          f"PSF fit ({backend}): non-finite PSFs or chi2")
+    check(PSF_CHI2_RANGE[0] <= chi2 <= PSF_CHI2_RANGE[1],
+          f"PSF fit ({backend}): mean reduced chi2 {chi2} outside "
+          f"{PSF_CHI2_RANGE}")
+    return n_fwd, n_adj
+
+
 def k2_operands(torch, setup_model, scene, seed):
     """K2's operands as the ROI fit gives them, with a random background,
     and a random output cotangent, on the card."""
@@ -351,12 +508,14 @@ def main():
           == HERE, "lightcurver_tpu_torch does not come from this checkout")
     from lightcurver_tpu_torch.core import starlet as plain
     from lightcurver_tpu_torch.core.deconv.model import setup_model
+    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
     from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
                                            fused_render, fused_render_cuda,
                                            starlet_cuda)
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
                                                                fit_roi)
-    from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, psf_pixel_phase_point)
 
     enforce_fp32()
     card = subprocess.run(
@@ -384,6 +543,8 @@ def main():
     records = phase_kernels(torch, starlet_cuda, plain)
     records.update(phase_k2(torch, fused_render_cuda, fused_render,
                             setup_model, make_roi_scene, card))
+    for name, err in phase_k1_psf(torch, starlet_cuda, plain, card).items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
 
     # noise 0.03, not the default 0.3: at 0.3 the float32 loss pins the
     # faintest epoch's flux only to ~1 mmag (0.02 sigma), so a relative
@@ -446,6 +607,17 @@ def main():
           f"to the fft fit {np.median(dmag) * 1e3:.4f} mmag > "
           f"{DMAG_MATMUL_MAX * 1e3} mmag")
     check(min(stage1) > 0, "stage 1 did not run through K2")
+
+    for backend, phase in (("fft", 6), ("matmul", "6b")):
+        phase_psf_small(np, build_psf_batched, psf_bench_frames,
+                        psf_pixel_phase_point, starlet_cuda, backend, phase)
+    k1_psf = [phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
+                             starlet_cuda, backend, phase, card)
+              for backend, phase in (("fft", 7), ("matmul", "7b"))]
+    # K1's launches over every run of the main path: ROI-100 on both
+    # renders and the full-width PSF fit on both
+    n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf)
+    n_adj += n_adj_mm + sum(a for _, a in k1_psf)
 
     csrc = "lightcurver_tpu_torch/csrc/"
     kernels = {

@@ -1,9 +1,10 @@
-"""lightcurver_tpu_torch: the joint ROI deconvolution in PyTorch, for CUDA.
+"""lightcurver_tpu_torch: the joint ROI deconvolution and the narrow-PSF
+fit in PyTorch, for CUDA.
 
 A port of the numerical core of ``lightcurver_tpu`` (JAX) to PyTorch. The
-layout mirrors the JAX package (``core/``, ``core/deconv/``, ``ops/``,
-``processes/``, ``utilities/``); ``csrc/`` holds the hand-written CUDA
-kernels. Each module names its JAX counterpart in its docstring, and the
+layout mirrors the JAX package (``core/``, ``core/deconv/``,
+``core/psf/``, ``ops/``, ``processes/``, ``utilities/``); ``csrc/`` holds
+the hand-written CUDA kernels. Each module names its JAX counterpart in its docstring, and the
 tests hold every module against that counterpart on the CPU.
 
 The package imports torch, numpy, scipy and the standard library only:
@@ -17,7 +18,14 @@ Numbers: every time quoted in this package's comments and in PERF.md was
 taken on an NVIDIA H100 and carries the card's name and power limit as
 ``nvidia-smi`` reports them. No TPU figure applies to this package.
 
-Entry point: :func:`lightcurver_tpu_torch.processes.roi_modelling.fit_roi`.
+Entry points, each on the card unless the caller passes ``device="cpu"``:
+
+- :func:`lightcurver_tpu_torch.processes.roi_modelling.fit_roi`, the
+  joint ROI deconvolution;
+- :func:`lightcurver_tpu_torch.core.psf.build.build_psf`, the narrow PSF
+  of one frame;
+- :func:`lightcurver_tpu_torch.core.psf.batched.build_psf_batched`, the
+  narrow PSFs of many frames at once.
 """
 
 __version__ = "0.1.0"

@@ -33,29 +33,38 @@ def pad_len(m):
     return 2 * m
 
 
-def freq_grids(m, device=None, dtype=torch.float32):
-    """``(fy, fx)`` of shapes (L, 1) and (1, L // 2 + 1), cycles / fine px."""
-    L = pad_len(m)
+def _length(m, L):
+    return pad_len(m) if L is None else int(L)
+
+
+def freq_grids(m, device=None, dtype=torch.float32, L=None):
+    """``(fy, fx)`` of shapes (L, 1) and (1, L // 2 + 1), cycles / fine px.
+
+    ``L`` defaults to :func:`pad_len`; the PSF fit passes a reduced length
+    (``core/psf/build.py::psf_fft_length``), so every helper below that
+    takes ``L`` follows the DFT matrices' actual length.
+    """
+    L = _length(m, L)
     fy = torch.fft.fftfreq(L, device=device, dtype=dtype).reshape(L, 1)
     fx = torch.fft.rfftfreq(L, device=device, dtype=dtype).reshape(
         1, L // 2 + 1)
     return fy, fx
 
 
-def r_kernel_fft(m, s, device=None, dtype=torch.float32):
+def r_kernel_fft(m, s, device=None, dtype=torch.float32, L=None):
     """Analytic rfft2 of the unit-integral target Gaussian at the origin."""
     del s
     sigma_f = fwhm_to_sigma(TARGET_FWHM_FINE_PIX)
-    fy, fx = freq_grids(m, device=device, dtype=dtype)
+    fy, fx = freq_grids(m, device=device, dtype=dtype, L=L)
     return torch.exp(-2.0 * math.pi**2 * sigma_f**2 * (fy**2 + fx**2))
 
 
-def r_kernel_fft_1d(m, s, device=None, dtype=torch.float32):
+def r_kernel_fft_1d(m, s, device=None, dtype=torch.float32, L=None):
     """Separable factors ``(ry, rx)`` of :func:`r_kernel_fft`, lengths
     L and L // 2 + 1: ``r_kernel_fft = ry[:, None] * rx[None, :]``."""
     del s
     sigma_f = fwhm_to_sigma(TARGET_FWHM_FINE_PIX)
-    L = pad_len(m)
+    L = _length(m, L)
     fy = torch.fft.fftfreq(L, device=device, dtype=dtype)
     fx = torch.fft.rfftfreq(L, device=device, dtype=dtype)
     c = -2.0 * math.pi**2 * sigma_f**2
@@ -88,14 +97,36 @@ def psf_fft(t):
     return torch.fft.rfft2(t, s=(L, L))
 
 
+def hermitian_irfft2(total_hat, L):
+    """``irfft2(total_hat, s=(L, L))`` of the spectrum whose DC and (at even
+    L) Nyquist columns are replaced by their Hermitian parts along the full
+    axis, ``(X[k] + conj(X[-k])) / 2``.
+
+    A shifted source's spectrum is not Hermitian in those columns: there
+    its phase ramp is a complex constant (``exp(-i pi s px)`` at Nyquist).
+    A C2R transform of such input is undefined: pocketfft (torch and JAX
+    on the CPU) keeps the Hermitian part, cuFFT does not, and a free
+    grid's spectrum gives that column weight (the batched PSF fit's grid
+    gradient differed card against CPU by 2e-4 of its maximum, on the
+    edge columns). Both devices now transform the same Hermitian input:
+    on the CPU the result moves by rounding only, and the gradient not at
+    all (the C2R adjoint is Hermitian in those columns).
+    """
+    edges = [0, total_hat.shape[-1] - 1] if L % 2 == 0 else [0]
+    cols = total_hat[..., edges]
+    mirror = torch.conj(torch.roll(torch.flip(cols, dims=[-2]), 1, dims=-2))
+    total_hat = total_hat.clone()
+    total_hat[..., edges] = 0.5 * (cols + mirror)
+    return torch.fft.irfft2(total_hat, s=(L, L))
+
+
 def render_from_fft(total_hat, m):
     """Inverse transform of an assembled spectrum + corner crop to (m, m)."""
-    L = pad_len(m)
-    return torch.fft.irfft2(total_hat, s=(L, L))[..., :m, :m]
+    return hermitian_irfft2(total_hat, pad_len(m))[..., :m, :m]
 
 
-def _ramp_angles(m, s, px, py, device, dtype):
-    L = pad_len(m)
+def _ramp_angles(m, s, px, py, device, dtype, L):
+    L = _length(m, L)
     fy = torch.fft.fftfreq(L, device=device, dtype=dtype)
     fx = torch.fft.rfftfreq(L, device=device, dtype=dtype)
     ay = -2.0 * math.pi * fy * (s * py)[..., None]
@@ -103,7 +134,7 @@ def _ramp_angles(m, s, px, py, device, dtype):
     return ay, ax
 
 
-def point_source_ramps(m, s, a, px, py, ry=None, rx=None):
+def point_source_ramps(m, s, a, px, py, ry=None, rx=None, L=None):
     """1-D factors ``(u_re, u_im, v_re, v_im)`` of the separable ramps.
 
     The spectrum of ``a r(. - p)`` relative to a PSF transform is
@@ -113,7 +144,7 @@ def point_source_ramps(m, s, a, px, py, ry=None, rx=None):
     :func:`r_kernel_fft_1d`) fold the target Gaussian in, so the ramps
     pair with the raw PSF spectrum.
     """
-    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype)
+    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype, L)
     uy = a[..., None] if ry is None else a[..., None] * ry
     vx_c, vx_s = torch.cos(ax), torch.sin(ax)
     if rx is not None:
@@ -121,7 +152,7 @@ def point_source_ramps(m, s, a, px, py, ry=None, rx=None):
     return uy * torch.cos(ay), uy * torch.sin(ay), vx_c, vx_s
 
 
-def point_source_ramp_stacks(m, s, a, px, py, ry=None, rx=None):
+def point_source_ramp_stacks(m, s, a, px, py, ry=None, rx=None, L=None):
     """Stacked rank-1 factors ``(u_re, u_im, v)`` of the point sources.
 
     Shapes (..., 2M, L), (..., 2M, L), (..., 2M, L // 2 + 1), with
@@ -133,7 +164,7 @@ def point_source_ramp_stacks(m, s, a, px, py, ry=None, rx=None):
     ``u_im = [a sy, a cy]`` and ``v = [cx, sx]``. ``ry``/``rx`` as in
     :func:`point_source_ramps`.
     """
-    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype)
+    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype, L)
     cy, sy = torch.cos(ay), torch.sin(ay)                 # (..., M, L)
     cx, sx = torch.cos(ax), torch.sin(ax)                 # (..., M, Lh)
     uy = a[..., None] if ry is None else a[..., None] * ry
@@ -144,15 +175,16 @@ def point_source_ramp_stacks(m, s, a, px, py, ry=None, rx=None):
     return u_re, u_im, torch.cat([cx, sx], dim=-2)
 
 
-def point_source_spectrum_parts(m, s, a, px, py, ry=None, rx=None):
+def point_source_spectrum_parts(m, s, a, px, py, ry=None, rx=None, L=None):
     """(re, im) of the point-source spectrum as two real tensors, by two
     contractions over the stacked axis 2M."""
-    u_re, u_im, v = point_source_ramp_stacks(m, s, a, px, py, ry=ry, rx=rx)
+    u_re, u_im, v = point_source_ramp_stacks(m, s, a, px, py, ry=ry, rx=rx,
+                                             L=L)
     return torch.einsum("...jy,...jx->...yx", u_re, v), \
         torch.einsum("...jy,...jx->...yx", u_im, v)
 
 
-def point_source_spectrum(m, s, a, px, py):
+def point_source_spectrum(m, s, a, px, py, L=None):
     """Spectrum of ``sum_j a_j r(. - p_j)`` relative to a PSF transform.
 
     Args:
@@ -166,9 +198,9 @@ def point_source_spectrum(m, s, a, px, py):
     so the source sum is two contractions over the stacked axis 2M:
     ``re = [a cy, -a sy] @ [cx, sx]`` and ``im = [a sy, a cy] @ [cx, sx]``;
     a single source is a plain outer product (the same two branches as
-    the JAX twin, so both round alike).
+    the JAX twin, so both round alike). ``L`` as in :func:`freq_grids`.
     """
-    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype)
+    ay, ax = _ramp_angles(m, s, px, py, a.device, a.dtype, L)
     amps = a[..., None]
     if a.shape[-1] == 1:
         u_re = (amps * torch.cos(ay))[..., 0, :, None]
@@ -178,4 +210,5 @@ def point_source_spectrum(m, s, a, px, py):
         re = u_re * vx_c - u_im * vx_s
         im = u_re * vx_s + u_im * vx_c
         return torch.complex(re, im)
-    return torch.complex(*point_source_spectrum_parts(m, s, a, px, py))
+    return torch.complex(*point_source_spectrum_parts(m, s, a, px, py,
+                                                      L=L))

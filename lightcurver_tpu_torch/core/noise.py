@@ -48,8 +48,8 @@ def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
             dft_mats)
     else:
         fine_hat = torch.fft.rfft2(fine, s=(L, L))
-        back = torch.fft.irfft2(fine_hat * torch.conj(mean_ps_hat),
-                                s=(L, L))[..., :m, :m]
+        back = conv.hermitian_irfft2(fine_hat * torch.conj(mean_ps_hat),
+                                     L)[..., :m, :m]
     coeffs = starlet_transform(back.contiguous())
     return torch.clamp(torch.std(coeffs, dim=0, correction=0), min=1e-12)
 

@@ -17,6 +17,16 @@ float32 vector, so each optimizer step is a handful of kernels whatever
 the number of leaves; a Python loop takes the place of ``lax.scan``.
 Checkpointed segments and the extended path (stop at loss increase,
 parameter history) are not ported.
+
+Frame-batched twins (the JAX package's ``adabelief_scan`` and
+``lbfgsb_scan`` under ``jax.vmap``): :func:`run_adabelief_batched` and
+:func:`run_lbfgsb_batched` optimize F independent problems at once. The
+free tree's leaves carry a leading frame axis, the loss returns the (F,)
+vector of per-frame losses, and the gradient of its sum is the per-frame
+gradient. Every decision (best loss, line-search acceptance) is a
+per-frame mask, so a NaN in one frame changes no other frame, and no
+iteration reads a value back to the host (no ``.item()``, no branch on
+data), so a CUDA graph can later capture it.
 """
 
 import time
@@ -75,6 +85,22 @@ def unflatten(vec, spec):
     return out
 
 
+def _adabelief_update(theta, grad, mu, nu, lo, hi, it, n_iter,
+                      init_learning_rate, schedule_learning_rate):
+    """One projected AdaBelief step (optax's arithmetic): returns the new
+    (theta, mu, nu). Elementwise, so it serves any leading frame axis."""
+    mu = (1 - B1) * grad + B1 * mu
+    pred_err = grad - mu
+    nu = (1 - B2) * pred_err**2 + B2 * nu + EPS_ROOT
+    count = it + 1
+    mu_hat = mu / np.float32(1 - B1**count)
+    nu_hat = nu / np.float32(1 - B2**count)
+    lr = init_learning_rate * 0.01 ** (it / max(n_iter, 1)) \
+        if schedule_learning_rate else init_learning_rate
+    step = np.float32(-lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+    return torch.clamp(theta + step, lo, hi), mu, nu
+
+
 def run_adabelief(loss_fn, free0, lower, upper, n_iter,
                   init_learning_rate=1e-3, schedule_learning_rate=True):
     """Projected AdaBelief.
@@ -101,16 +127,9 @@ def run_adabelief(loss_fn, free0, lower, upper, n_iter,
         improved = value < best_loss
         best_loss = torch.where(improved, value, best_loss)
         best = torch.where(improved, theta, best)
-        mu = (1 - B1) * grad + B1 * mu
-        pred_err = grad - mu
-        nu = (1 - B2) * pred_err**2 + B2 * nu + EPS_ROOT
-        count = it + 1
-        mu_hat = mu / np.float32(1 - B1**count)
-        nu_hat = nu / np.float32(1 - B2**count)
-        lr = init_learning_rate * 0.01 ** (it / max(n_iter, 1)) \
-            if schedule_learning_rate else init_learning_rate
-        step = np.float32(-lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-        theta = torch.clamp(theta + step, lo, hi)
+        theta, mu, nu = _adabelief_update(
+            theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
+            schedule_learning_rate)
     return (_free_from(best, spec, free0), _free_from(theta, spec, free0),
             history.cpu().numpy())
 
@@ -150,6 +169,291 @@ def run_lbfgsb(loss_fn, free0, lower, upper, n_iter):
     return (_free_from(best, spec, free0),
             _free_from(theta.detach(), spec, free0),
             history.cpu().numpy())
+
+
+def flatten_batched(tree):
+    """(vector (F, P), spec) of a tree whose leaves have a leading frame
+    axis F; the spec holds the per-frame shapes, so :func:`flatten_like`
+    turns per-frame bound trees into (P,) vectors."""
+    spec, parts = [], []
+    for path, v in _leaves(tree):
+        spec.append((path, tuple(v.shape[1:])))
+        parts.append(v.reshape(v.shape[0], -1))
+    return torch.cat(parts, dim=1), spec
+
+
+def unflatten_batched(vec, spec):
+    """Nested dict of views into ``vec`` (F, P), each leaf (F, *shape)."""
+    out, offset = {}, 0
+    for path, shape in spec:
+        n = int(np.prod(shape, dtype=np.int64))
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = vec[:, offset:offset + n].reshape(-1, *shape)
+        offset += n
+    return out
+
+
+def _value_and_grad_batched(loss_fn, spec):
+    def value_and_grad(vec):
+        x = vec.detach().requires_grad_(True)
+        value = loss_fn(unflatten_batched(x, spec))
+        grad, = torch.autograd.grad(value.sum(), x)
+        return value.detach(), grad
+    return value_and_grad
+
+
+def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
+                          init_learning_rate=1e-3,
+                          schedule_learning_rate=True):
+    """Projected AdaBelief over F independent problems.
+
+    ``free0``: tree of (F, ...) tensors; ``lower``/``upper``: trees of the
+    per-frame shapes (broadcast over frames); ``loss_fn(tree) -> (F,)``.
+    The learning-rate schedule is shared; each frame keeps its moments
+    and its best loss.
+
+    Returns:
+        (best_free, final_free, loss_history) with the history an (F,
+        n_iter) tensor on the device of the parameters.
+    """
+    theta, spec = flatten_batched(free0)
+    theta = theta.detach().clone()
+    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
+    value_and_grad = _value_and_grad_batched(loss_fn, spec)
+    mu = torch.zeros_like(theta)
+    nu = torch.zeros_like(theta)
+    best = theta.clone()
+    best_loss = torch.full(theta.shape[:1], float("inf"),
+                           device=theta.device)
+    history = torch.empty(theta.shape[0], n_iter, device=theta.device)
+    for it in range(n_iter):
+        value, grad = value_and_grad(theta)
+        history[:, it] = value
+        improved = value < best_loss
+        best_loss = torch.where(improved, value, best_loss)
+        best = torch.where(improved[:, None], theta, best)
+        theta, mu, nu = _adabelief_update(
+            theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
+            schedule_learning_rate)
+    return (unflatten_batched(best, spec), unflatten_batched(theta, spec),
+            history)
+
+
+# optax.scale_by_zoom_linesearch defaults, as lbfgsb_scan builds it
+LS_SLOPE_RTOL, LS_CURV_RTOL, LS_APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
+LS_INCREASE_FACTOR, LS_INTERVAL_THRESHOLD = 2.0, 1e-5
+LBFGS_LINESEARCH_STEPS = 6
+
+
+def _decrease_error(t, value, slope, value0, slope0):
+    """Sufficient decrease (Armijo) or Hager-Zhang's approximate form,
+    whichever holds better; NaN counts as infinite."""
+    err = value - value0 - LS_SLOPE_RTOL * t * slope0
+    approx = torch.maximum(
+        slope - (2 * LS_SLOPE_RTOL - 1.0) * slope0,
+        value - value0 - LS_APPROX_DEC_RTOL * value0.abs())
+    err = torch.clamp(torch.minimum(approx, err), min=0.0)
+    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")),
+                       err)
+
+
+def _curvature_error(slope, slope0):
+    err = torch.clamp(slope.abs() - LS_CURV_RTOL * slope0.abs(), min=0.0)
+    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")),
+                       err)
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Critical point of the cubic through (a, fa), (b, fb), (c, fc) with
+    slope fpa at a (NaN where there is none)."""
+    db, dc = b - a, c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    rb, rc = fb - fa - fpa * db, fc - fa - fpa * dc
+    A = (dc**2 * rb - db**2 * rc) / denom
+    B = (-(dc**3) * rb + db**3 * rc) / denom
+    return a + (-B + torch.sqrt(B * B - 3.0 * A * fpa)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    db = b - a
+    B = (fb - fa - fpa * db) / db**2
+    return a - fpa / (2.0 * B)
+
+
+def _zoom_linesearch(value_and_grad, x, value0, grad0, d, max_steps):
+    """optax's zoom line search (Nocedal and Wright, algorithms 3.5 and
+    3.6), one search per frame, run for exactly ``max_steps`` trial
+    evaluations of all frames at once. A frame that is done or has failed
+    is frozen by masks (its later trials re-evaluate its last step and
+    are discarded). A failed frame takes its best step of sufficient
+    decrease, or stays where it is if every trial was outside the
+    domain, or else takes its last trial, as optax does.
+
+    Returns (stepsize (F,), value (F,), grad (F, P)) at the accepted step.
+    """
+    slope0 = (grad0 * d).sum(-1)
+    zero = torch.zeros_like(value0)
+    t, val, grad, slope = zero, value0, grad0, slope0
+    low, f_low, s_low = zero, value0, slope0
+    high, f_high, s_high = zero, value0, slope0
+    ref, f_ref = zero, value0
+    safe_t, safe_f, safe_g = zero, value0, grad0
+    dec = torch.full_like(value0, float("inf"))
+    found = torch.zeros_like(value0, dtype=torch.bool)
+    stop = torch.zeros_like(found)       # done or failed
+    failed = torch.zeros_like(found)
+    for i in range(max_steps):
+        # zoom: a cubic, else quadratic, else bisection step in [low, high]
+        delta = (high - low).abs()
+        left, right = torch.minimum(low, high), torch.maximum(low, high)
+        cubic = _cubicmin(low, f_low, s_low, high, f_high, ref, f_ref)
+        use_cubic = (cubic > left + 0.2 * delta) & (cubic < right
+                                                    - 0.2 * delta)
+        quad = _quadmin(low, f_low, s_low, high, f_high)
+        use_quad = ~use_cubic & (quad > left + 0.1 * delta) \
+            & (quad < right - 0.1 * delta)
+        middle = torch.where(use_cubic, cubic, ref)
+        middle = torch.where(use_quad, quad, middle)
+        middle = torch.where(~use_cubic & ~use_quad, (low + high) / 2.0,
+                             middle)
+        search = torch.full_like(t, 1.0) if i == 0 \
+            else LS_INCREASE_FACTOR * t
+        new_t = torch.where(stop, t, torch.where(found, middle, search))
+
+        new_val, new_grad = value_and_grad(x + new_t[:, None] * d)
+        new_slope = (new_grad * d).sum(-1)
+        new_dec = _decrease_error(new_t, new_val, new_slope, value0, slope0)
+        err = torch.maximum(new_dec, _curvature_error(new_slope, slope0))
+        done = err <= 0.0
+        last = i + 1 >= max_steps
+
+        # interval search (algorithm 3.5)
+        s_high_new = (new_dec > 0.0) | ((new_val >= val) & (i > 0))
+        s_low_new = (new_slope >= 0.0) & ~s_high_new
+        s_found = s_high_new | s_low_new | done
+        s_failed = torch.full_like(done, last) & ~done
+        s_safe = new_dec <= 0.0
+        s_lh = [torch.where(s_low_new, a, b) for a, b in zip(
+            (new_t, new_val, new_slope, t, val, slope),
+            (t, val, slope, new_t, new_val, new_slope))]
+
+        # zoom (algorithm 3.6)
+        z_safe = (new_dec <= 0.0) & (new_val < safe_f)
+        z_high_mid = (new_dec > 0.0) | (new_val >= f_low)
+        z_high_low = (new_slope * (high - low) >= 0.0) & ~z_high_mid
+        z_high = [torch.where(z_high_low, lo_, torch.where(z_high_mid, mid,
+                                                            hi_))
+                  for lo_, mid, hi_ in zip((low, f_low, s_low),
+                                           (new_t, new_val, new_slope),
+                                           (high, f_high, s_high))]
+        z_low = [torch.where(z_high_mid, lo_, mid)
+                 for lo_, mid in zip((low, f_low, s_low),
+                                     (new_t, new_val, new_slope))]
+        z_moved = z_high_mid | z_high_low
+        z_ref = (torch.where(z_moved, high, low),
+                 torch.where(z_moved, f_high, f_low))
+        z_safe_t = torch.where(z_safe, new_t, safe_t)
+        z_failed = (torch.full_like(done, last)
+                    | ((delta <= LS_INTERVAL_THRESHOLD) & (z_safe_t > 0.0))
+                    ) & ~done
+
+        take_safe = torch.where(found, z_safe, s_safe) & ~stop
+        safe_t = torch.where(take_safe, new_t, safe_t)
+        safe_f = torch.where(take_safe, new_val, safe_f)
+        safe_g = torch.where(take_safe[:, None], new_grad, safe_g)
+        nxt_low = [torch.where(found, z, s) for z, s in zip(z_low, s_lh[:3])]
+        nxt_high = [torch.where(found, z, s)
+                    for z, s in zip(z_high, s_lh[3:])]
+        nxt_ref = (torch.where(found, z_ref[0], nxt_low[0]),
+                   torch.where(found, z_ref[1], nxt_low[1]))
+        live = ~stop
+        low, f_low, s_low = (torch.where(live, n, o) for n, o in zip(
+            nxt_low, (low, f_low, s_low)))
+        high, f_high, s_high = (torch.where(live, n, o) for n, o in zip(
+            nxt_high, (high, f_high, s_high)))
+        ref, f_ref = (torch.where(live, n, o)
+                      for n, o in zip(nxt_ref, (ref, f_ref)))
+        t = torch.where(live, new_t, t)
+        val = torch.where(live, new_val, val)
+        slope = torch.where(live, new_slope, slope)
+        grad = torch.where(live[:, None], new_grad, grad)
+        dec = torch.where(live, new_dec, dec)
+        now_failed = torch.where(found, z_failed, s_failed) & live
+        failed = failed | now_failed
+        stop = stop | (done & live) | now_failed
+        found = found | (s_found & live)
+    use_safe = failed & ((safe_t > 0.0) | torch.isinf(dec))
+    return (torch.where(use_safe, safe_t, t),
+            torch.where(use_safe, safe_f, val),
+            torch.where(use_safe[:, None], safe_g, grad))
+
+
+def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter):
+    """Projected L-BFGS over F independent problems, as ``lbfgsb_scan``
+    behaves under ``jax.vmap`` with ``exact_bounds=False``.
+
+    Per frame: ``optax.scale_by_lbfgs`` (memory :data:`LBFGS_MEMORY`, the
+    initial inverse Hessian scaled by the last pair's curvature, or by the
+    capped inverse gradient norm at the first step), optax's zoom line
+    search from a unit step (:func:`_zoom_linesearch`, at most
+    :data:`LBFGS_LINESEARCH_STEPS` trials, JAX's ``max_linesearch_steps``),
+    then a projection onto the box. As with ``exact_bounds=False``, the value and gradient
+    carried into the next iteration are the line search's, at the
+    unprojected step. Arguments and returns as
+    :func:`run_adabelief_batched`. Each iteration costs
+    :data:`LBFGS_LINESEARCH_STEPS` evaluations of all frames (one more at
+    the start).
+    """
+    x, spec = flatten_batched(free0)
+    x = x.detach().clone()
+    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
+    value_and_grad = _value_and_grad_batched(loss_fn, spec)
+    n_frames = x.shape[0]
+    memory_size = LBFGS_MEMORY
+    dparams = x.new_zeros(n_frames, memory_size, x.shape[1])
+    dgrads = torch.zeros_like(dparams)
+    rhos = x.new_zeros(n_frames, memory_size)
+    best = x.clone()
+    best_loss = torch.full((n_frames,), float("inf"), device=x.device)
+    history = torch.empty(n_frames, n_iter, device=x.device)
+    value, grad = value_and_grad(x)
+    prev_x = prev_g = None
+    for it in range(n_iter):
+        history[:, it] = value
+        improved = value < best_loss
+        best_loss = torch.where(improved, value, best_loss)
+        best = torch.where(improved[:, None], x, best)
+        if prev_x is None:
+            gamma = torch.clamp(1.0 / grad.norm(dim=-1), max=1.0)
+        else:
+            dp, dg = x - prev_x, grad - prev_g
+            curv = (dg * dp).sum(-1)
+            slot = (it - 1) % memory_size
+            dparams[:, slot] = dp
+            dgrads[:, slot] = dg
+            rhos[:, slot] = torch.where(curv == 0.0, torch.zeros_like(curv),
+                                        1.0 / curv)
+            norm2 = (dg * dg).sum(-1)
+            gamma = torch.where(norm2 > 0.0, curv / norm2,
+                                torch.ones_like(curv))
+        # two-loop recursion, oldest slot first (optax's memory order)
+        order = [(it + j) % memory_size for j in range(memory_size)]
+        q, alphas = grad, {}
+        for k in reversed(order):
+            alphas[k] = rhos[:, k] * (dparams[:, k] * q).sum(-1)
+            q = q - alphas[k][:, None] * dgrads[:, k]
+        q = gamma[:, None] * q
+        for k in order:
+            beta = rhos[:, k] * (dgrads[:, k] * q).sum(-1)
+            q = q + (alphas[k] - beta)[:, None] * dparams[:, k]
+        prev_x, prev_g = x, grad
+        step, value, grad = _zoom_linesearch(
+            value_and_grad, x, value, grad, -q, LBFGS_LINESEARCH_STEPS)
+        x = torch.clamp(x - step[:, None] * q, lo, hi)
+    return (unflatten_batched(best, spec), unflatten_batched(x, spec),
+            history)
 
 
 def _free_from(vec, spec, free0):

@@ -27,6 +27,9 @@ def moffat_fine_grid(m, s, fwhm_x, fwhm_y, beta, x0=0.0, y0=0.0, phi=0.0,
     """Unit-integral elliptical Moffat ``(1 + u)^(-beta)`` on the fine grid.
 
     FWHMs in DATA pixels, ``phi`` the position angle in radians.
+    ``fwhm_x``, ``fwhm_y`` and ``beta`` may be tensors (the PSF fit's free
+    parameters): the result is differentiable in them, and tensors shaped
+    ``(..., 1, 1)`` give a ``(..., m, m)`` stack of profiles.
     """
     x, y = pixel_grid_coords(m, s, device=device, dtype=dtype)
     xr = x - x0
@@ -35,7 +38,8 @@ def moffat_fine_grid(m, s, fwhm_x, fwhm_y, beta, x0=0.0, y0=0.0, phi=0.0,
     sphi = math.sin(phi)
     xp = cphi * xr + sphi * yr
     yp = -sphi * xr + cphi * yr
-    root = math.sqrt(2.0 ** (1.0 / beta) - 1.0)
+    root = torch.sqrt(torch.as_tensor(2.0 ** (1.0 / beta) - 1.0,
+                                      dtype=dtype, device=x.device))
     alpha_x = fwhm_x / (2.0 * root)
     alpha_y = fwhm_y / (2.0 * root)
     u = (xp / alpha_x) ** 2 + (yp / alpha_y) ** 2

@@ -1,10 +1,16 @@
-"""Synthetic multi-epoch ROI scenes in numpy.
+"""Synthetic multi-epoch ROI scenes and star stamps in numpy.
 
-A copy of ``make_roi_scene``, ``render_epochs_np`` and ``moffat_np`` from
-``lightcurver_tpu/utilities/synthetic.py``: a machine without jax cannot
-import the original, since importing any ``lightcurver_tpu`` module loads
-the JAX core. The same seed gives the same scene as the original (the
-tests check this).
+A copy of ``make_roi_scene``, ``make_star_stamps``, ``render_epochs_np``
+and ``moffat_np`` from ``lightcurver_tpu/utilities/synthetic.py``: a
+machine without jax cannot import the original, since importing any
+``lightcurver_tpu`` module loads the JAX core. The same seed gives the
+same scene and the same stamps as the original (the tests check this).
+
+Also the frames of the JAX package's PSF bench (:func:`psf_bench_frames`)
+and a point of the batched PSF fit's pixel-phase loss on them
+(:func:`psf_pixel_phase_point`), which the kernel tests, ``chip_smoke.py``
+and ``tools/torch_psf_rounding.py`` hold card against CPU and float32
+against float64.
 """
 
 import math
@@ -98,3 +104,79 @@ def make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, noise_sigma=0.3,
         "psf": psf.astype(np.float32), "xs": xs, "ys": ys, "s": s,
         "a_true": a_true, "fwhm": fwhms.astype(np.float32),
     }
+
+
+def make_star_stamps(n_stars=8, n_pix=64, s=2, seed=3, fwhm_x=3.0,
+                     fwhm_y=2.6, beta=2.6, flux_range=(200.0, 800.0)):
+    """Synthetic single-frame star stamps sharing one PSF (for build_psf)."""
+    rng = np.random.default_rng(seed)
+    m = n_pix * s
+    psf = moffat_np(m, s, fwhm_x, fwhm_y, beta)
+    a = rng.uniform(*flux_range, n_stars).astype(np.float32)
+    x0 = rng.uniform(-0.4, 0.4, n_stars).astype(np.float32)
+    y0 = rng.uniform(-0.4, 0.4, n_stars).astype(np.float32)
+    psf_stack = np.broadcast_to(psf, (n_stars, m, m))
+    clean = render_epochs_np(psf_stack, a[:, None], x0[:, None], y0[:, None],
+                             s)
+    sigma = np.sqrt(np.abs(clean) + 1.0).astype(np.float32)
+    data = clean + rng.normal(0, 1, clean.shape).astype(np.float32) * sigma
+    return {"data": data, "sigma": sigma, "psf_true": psf, "a_true": a,
+            "x0": x0, "y0": y0, "s": s}
+
+
+def psf_bench_frames(n_frames=16, n_stars=8, n_pix=64, s=2):
+    """(data, sigma), each (F, N, n, n): the frames of the JAX package's
+    PSF bench (``bench.py::run_psf_bench``), frame i from seed i with a
+    Moffat FWHM of 2.4 + 0.1 i px."""
+    frames = [make_star_stamps(n_stars=n_stars, n_pix=n_pix, s=s, seed=i,
+                               fwhm_x=2.4 + 0.1 * i, fwhm_y=2.4 + 0.1 * i)
+              for i in range(n_frames)]
+    return (np.stack([f["data"] for f in frames]),
+            np.stack([f["sigma"] for f in frames]))
+
+
+def psf_pixel_phase_point(n_frames, n_stars, n_pix, irfft_backend, device,
+                          dtype=np.float32):
+    """``(loss, free, consts)``: the batched PSF fit's pixel-phase loss on
+    :func:`psf_bench_frames` (s = 2, ``dft_pad`` 16 on the matmul render)
+    at a parameter point made from a seed, in ``dtype`` on ``device``;
+    ``loss(free, consts)`` is the (F,) vector of per-frame losses.
+    float64 upcasts the data, the parameters and the DFT matrices."""
+    import torch
+
+    from ..core.psf.build import phase_losses, psf_dft_mats
+    from ..core.starlet import n_starlet_scales
+
+    data, sigma = psf_bench_frames(n_frames, n_stars, n_pix)
+    m = 2 * n_pix
+    scale = data.max(axis=(1, 2, 3), keepdims=True)
+    rng = np.random.default_rng(8)
+
+    def on(x, kind=dtype):
+        return torch.as_tensor(np.asarray(x, dtype=kind), device=device)
+
+    mats = psf_dft_mats(m, 2, irfft_backend, 16, device)
+    if mats is not None:
+        mats = {k: v.to(on(0.0).dtype) for k, v in mats.items()}
+    consts = {"data": on(data / scale), "sigma_2": on((sigma / scale) ** 2),
+              "masks": on(np.ones(data.shape, bool), bool),
+              "stamp_coordinates": on(np.zeros((n_frames, n_stars, 2))),
+              "dft_mats": mats,
+              "W": on(rng.uniform(0.01, 0.05, (n_frames,
+                                               n_starlet_scales(m) + 1,
+                                               m, m))),
+              "lam": on(1.0),
+              "fixed": {"kwargs_moffat": {
+                  k: on(np.full(n_frames, v)) for k, v in
+                  (("fwhm_x", 2.6), ("fwhm_y", 2.5), ("beta", 2.7))},
+                  "kwargs_distortion": {
+                      k: on(np.zeros((n_frames, 5))) for k in
+                      ("dilation_x", "dilation_y", "shear")}}}
+    free = {"kwargs_gaussian": {
+        "a": on(data.sum(axis=(2, 3)) / scale[:, :, 0, 0]),
+        "x0": on(rng.uniform(-0.3, 0.3, (n_frames, n_stars))),
+        "y0": on(rng.uniform(-0.3, 0.3, (n_frames, n_stars)))},
+        "kwargs_background": {"background": on(
+            1e-4 * rng.normal(0, 1, (n_frames, m * m)))}}
+    _, _, loss_pixels = phase_losses(n_stars, n_pix, 2, False)
+    return loss_pixels, free, consts

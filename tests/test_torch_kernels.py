@@ -20,11 +20,12 @@ for its fused-render kernel).
 import pytest
 import torch
 
-from lightcurver_tpu_torch.core import starlet as twin
+from lightcurver_tpu_torch.core import convolution, starlet as twin
 from lightcurver_tpu_torch.core.deconv.model import setup_model
 from lightcurver_tpu_torch.ops import (fused_render, fused_render_cuda,
                                        starlet_cuda, starlet_op)
-from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
+from lightcurver_tpu_torch.utilities.synthetic import (
+    make_roi_scene, psf_pixel_phase_point)
 
 TOL = 1e-5
 K2_TOL = 1e-4
@@ -61,11 +62,12 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("m,batch,expected", [
     (128, 1, 16), (64, 1, 16), (62, 1, 16), (256, 3, 16), (128, 9, 8),
     (24, 1, 4), (128, 500, 1), (64, 500, 1), (512, 500, 16), (544, 1, 16),
-    (545, 1, None)])
+    (545, 1, None), (128, 16, 8), (48, 3, 8), (128, 17, 4)])
 def test_cluster_size_rule(m, batch, expected):
     """C on an H100 (132 SMs, 232,448 bytes of shared memory a block):
     16 CTAs for one image, one CTA each for 500, more where a band would
-    not fit, none past m 544, bands of at least 4 rows."""
+    not fit, none past m 544, bands of at least 4 rows; the PSF fit's
+    batch of 16 frames of m 128 takes C 8 (128 CTAs in one wave)."""
     assert starlet_cuda.cluster_size(m, batch, 132, 232448) == expected
     if expected is not None:
         assert starlet_cuda.cta_bytes(m, expected) <= 232448
@@ -74,8 +76,11 @@ def test_cluster_size_rule(m, batch, expected):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,batch", [(64, 1), (64, 500), (128, 1),
                                      (128, 500), (62, 1), (62, 3), (256, 1),
-                                     (256, 3)])
+                                     (256, 3), (128, 16), (48, 3)])
 def test_cuda_kernels_match_plain(cuda, m, batch):
+    """The ROI fit's shapes, odd and wide stamps, and the PSF fit's: a
+    batch of frames (16 of m 128 at full width, 3 of m 48 in the CPU
+    tests) spread over clusters of 1 < C < 16."""
     gen = torch.Generator().manual_seed(m + batch)
     x = torch.randn(batch, m, m, generator=gen).to(cuda)
     g = torch.randn(batch, twin.n_starlet_scales(m) + 1, m, m,
@@ -551,3 +556,82 @@ def test_k2_backward_writes_du_without_partials(cuda):
     assert fused_render_cuda.launches.backward == 2
     for got, second in zip(grads, again):
         assert torch.equal(got, second)
+
+
+def _psf_loss_case(device, n_frames, n_stars, n_pix, backend):
+    """The batched PSF pixel-phase loss (F,) and its gradients at the point
+    of ``psf_pixel_phase_point``, on ``device``."""
+    loss, free, consts = psf_pixel_phase_point(n_frames, n_stars, n_pix,
+                                               backend, device)
+    leaves = [v.requires_grad_(True) for d in free.values()
+              for v in d.values()]
+    value = loss(free, consts)
+    value.sum().backward()
+    return value.detach().cpu(), [x.grad.cpu() for x in leaves]
+
+
+def test_psf_loss_on_cpu_tensors_leaves_launch_counters_at_zero():
+    starlet_cuda.launches.reset()
+    value, grads = _psf_loss_case("cpu", 2, 3, 12, "fft")
+    assert value.shape == (2,) and all(torch.isfinite(g).all()
+                                       for g in grads)
+    assert (starlet_cuda.launches.forward,
+            starlet_cuda.launches.adjoint) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_frames,n_stars,n_pix", [(3, 4, 24), (16, 8, 64)])
+@pytest.mark.parametrize("backend", ["fft", "matmul"])
+def test_psf_loss_gradient_on_the_card_matches_cpu(cuda, n_frames, n_stars,
+                                                   n_pix, backend):
+    """The batched PSF pixel-phase loss and its gradient: one K1 launch
+    each way for all frames on the card, the plain twins on the CPU; the
+    test sizes and the full width (16 frames of 8 stars, 64 px, m 128,
+    C 8); the matmul render at dft_pad 16."""
+    want, want_grads = _psf_loss_case("cpu", n_frames, n_stars, n_pix,
+                                      backend)
+    starlet_cuda.launches.reset()
+    got, got_grads = _psf_loss_case(cuda, n_frames, n_stars, n_pix, backend)
+    assert (starlet_cuda.launches.forward,
+            starlet_cuda.launches.adjoint) == (1, 1)
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+    for g, w in zip(got_grads, want_grads):
+        assert (g - w).abs().max().item() <= K2_TOL * w.abs().max().item()
+
+
+def _non_hermitian_spectrum(device, L, seed):
+    """A random (3, L, L // 2 + 1) spectrum, not Hermitian in its DC and
+    Nyquist columns (as a shifted source's spectrum is not)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (3, L, L // 2 + 1)
+    return torch.complex(torch.randn(shape, generator=gen),
+                         torch.randn(shape, generator=gen)).to(device)
+
+
+@pytest.mark.parametrize("L", [256, 61])
+def test_hermitian_irfft2_is_the_cpu_irfft2(L):
+    """On the CPU, projecting the DC and Nyquist columns changes pocketfft's
+    C2R by rounding only, and its gradient not at all."""
+    X = _non_hermitian_spectrum("cpu", L, L)
+    g = torch.randn(3, L, L, generator=torch.Generator().manual_seed(1))
+    outs, grads = [], []
+    for fn in (lambda x: torch.fft.irfft2(x, s=(L, L)),
+               lambda x: convolution.hermitian_irfft2(x, L)):
+        x = X.clone().requires_grad_(True)
+        out = fn(x)
+        (out * g).sum().backward()
+        outs.append(out.detach())
+        grads.append(x.grad)
+    assert (outs[1] - outs[0]).abs().max() <= 1e-6 * outs[0].abs().max()
+    assert (grads[1] - grads[0]).abs().max() <= 1e-6 * grads[0].abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [256, 160])
+def test_hermitian_irfft2_on_the_card_matches_cpu(cuda, L):
+    """cuFFT and pocketfft agree once the input is Hermitian where a C2R
+    transform needs it."""
+    X = _non_hermitian_spectrum("cpu", L, L)
+    want = convolution.hermitian_irfft2(X, L)
+    got = convolution.hermitian_irfft2(X.to(cuda), L).cpu()
+    assert (got - want).abs().max() <= TOL * want.abs().max()
