@@ -28,6 +28,13 @@ prints no result:
    slabs, launches per call and scratch bytes;
 3c. K1 forward and adjoint at the PSF fit's shape, a batch of 16 frames of
    m 128 (the wrapper's C: 8), against the twin and timed as in phase 3;
+3d. the star photometry's shapes: K2 forward and backward with a per-star
+   background (G = 32 groups of 100 epochs, n 24, L 96: 3200 render
+   epochs) against the plain twins at phase 3b's bar and timed beside
+   their bounds (which count G background planes); K2 with one group
+   against the shared plane, to the bit; K1 at (m 48, batch 32), the l1
+   term of 32 stars, and (48, 6400), their noise weights, against the
+   twin and timed as in phase 3;
 4. a small scene (16 epochs, 32 px, s = 2, 4 sources, noise 0.03):
    ``fit_roi`` on the card through the kernels against ``fit_roi`` on the
    CPU through the plain twins, at the shipped recipe: fluxes within
@@ -59,13 +66,30 @@ prints no result:
    package's ``bench.py::run_psf_bench``) on cuFFT: wall time and PSF
    fits/s, K1 launches (at least 3000 each way), finite PSFs and a mean
    reduced chi2 in [0.5, 1.0]; 7b the same on the matmul render at
-   ``dft_pad`` 16, the production default.
+   ``dft_pad`` 16, the production default;
+8. a small star fit (3 stars with 6, 5 and 4 real epochs padded to 6,
+   16 px, s = 2, 60 AdaBelief iterations, a starlet background per star)
+   through ``fit_stars_batched`` on the card against the CPU, fluxes within
+   1 mmag and chi2 within 1 %, with the card run's K1 and K2 launches
+   (exactly 61 forward and 60 adjoint K1; 60 each way of K2 on matmul,
+   none on fft); 8b the same on ``irfft_backend="matmul"``;
+9. the full-width star fit (one bucket of 32 stars x 100 epochs, 24 px,
+   s = 2, 2000 AdaBelief iterations; the stamps of the JAX package's
+   ``bench.py::run_star_photometry_bench``) at the shipped flags on cuFFT:
+   wall time (host clock, outputs fetched) and star fits/s, finite fluxes
+   and errors, a mean reduced chi2 in [0.9, 1.1] (true PSF, exact noise),
+   the median |dmag| against the true fluxes, and no launch of K1 or K2
+   (the shipped flags render without them); 9b the same on matmul;
+9c, 9d the same with ``starlet_global_background=True`` on each render,
+   with exact launch counts: K1 2001 forward (2000 iterations and one
+   noise batch of 32 x 200) and 2000 adjoint; K2 2000 each way on matmul
+   (the finalize renders without it), none on fft.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
-its launches over every run of the main path (phases 5, 5b, 7 and 7b),
-and, last, the device line. There is no CPU path: without a card the
+its launches over every run of the main path (phases 5, 5b, 7, 7b and
+9 to 9d), and, last, the device line. There is no CPU path: without a card the
 script fails.
 """
 
@@ -167,16 +191,19 @@ def k2_work(ops, backward, include_h):
     """Bytes (each operand read once, each result written once) and
     FLOPs of K2 at the shapes of ``ops``: ``(bytes, products, rest)``,
     the products being those the tensor cores can take (the two DFT
-    stages), the rest the spectrum and the elementwise terms."""
+    stages), the rest the spectrum and the elementwise terms. With h the
+    background is G planes (G = 1 for one shared plane), read by the
+    forward and written as dh by the backward."""
     u_re, v, ayp = ops[0], ops[2], ops[10]
     N, C, L = u_re.shape
     Lh, n = v.shape[-1], ayp.shape[0]
     plane = L * Lh
-    consts = (3 + 2 * (not backward)) if include_h else 1
+    G = ops[8].shape[0] if include_h and ops[8].dim() == 3 else 1
+    consts = (3 + 2 * G * (not backward)) if include_h else 1
     floats = (2 * N * C * L + N * C * Lh + 2 * N * plane + consts * plane
               + 2 * n * L + 2 * Lh * n + N * n * n)
     if backward:   # du, dv and dh out
-        floats += 2 * N * C * L + N * C * Lh + 2 * plane * include_h
+        floats += 2 * N * C * L + N * C * Lh + 2 * G * plane * include_h
     products = 2 * N * (4 * n * plane + 2 * n * n * Lh)
     rank1 = (2 if backward else 1) * 2 * N * 2 * C * plane
     rest = rank1 + N * plane * (8 + 14 * include_h)
@@ -235,12 +262,13 @@ def phase_kernels(torch, starlet_cuda, plain):
     return records
 
 
-def phase_k1_psf(torch, starlet_cuda, plain, card):
-    """3c: K1 at the frame-batched PSF fit's shape (16 frames, m 128)."""
-    m, batch = 128, 16
+def phase_k1_at(torch, starlet_cuda, plain, card, phase, m, batch):
+    """K1 forward and adjoint at (m, batch) against the twin, timed from a
+    CUDA graph: 3c at the frame-batched PSF fit's shape (m 128, 16
+    frames), 3d at the star fit's (m 48, 32 stars; 6400 noise samples)."""
     n_scales = plain.n_starlet_scales(m)
     cluster = starlet_cuda.cluster_for(torch.device("cuda"), m, batch)
-    gen = torch.Generator().manual_seed(16)
+    gen = torch.Generator().manual_seed(batch)
     x = torch.randn(batch, m, m, generator=gen).cuda()
     g = torch.randn(batch, n_scales + 1, m, m, generator=gen).cuda()
     errs = {}
@@ -255,11 +283,12 @@ def phase_k1_psf(torch, starlet_cuda, plain, card):
         tol = TOL * inp.abs().max().item()
         check(err <= tol, f"{name} m={m} B={batch}: max|diff| {err:.3e} > "
               f"{tol:.3e}")
-        ms, loop_ms = graph_ms(kernel, 200), cuda_ms(kernel, 200)
-        plain_ms = cuda_ms(twin, 20)
+        reps = 200 if batch < 1000 else 20
+        ms, loop_ms = graph_ms(kernel, reps), cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(twin, 20 if batch < 1000 else 3)
         bound_ms, bound_by = k1_bound(m, batch, n_scales)
         errs[name] = err
-        say("3c", f"{name} m={m} B={batch} C={cluster}: max|diff| {err:.3e} "
+        say(phase, f"{name} m={m} B={batch} C={cluster}: max|diff| {err:.3e} "
             f"(bound {tol:.3e}); kernel {ms:.4f} ms (CUDA graph; "
             f"{loop_ms:.4f} ms a call in a loop), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms * 1e3:.2f} us ({bound_by}; card {card})")
@@ -454,6 +483,135 @@ def phase_k2(torch, k2_cuda, twin, setup_model, make_roi_scene, card):
     return records
 
 
+def phase_k2_stars(torch, k2_cuda, twin, star_k2_operands, roi, card):
+    """3d: K2 with a per-star background at the full star shape against
+    its plain twins, and one group against the shared plane to the bit
+    (``roi``: phase 3b's ROI-100 operands and cotangent). Returns the
+    largest differences."""
+    G = 32
+    ops, g = star_k2_operands(G, 100, 24, "cuda", seed=G)
+    bwd_ops = (*ops[:8], *ops[10:])
+    errs = {}
+    for name, kernel, plain in (
+            ("fused_render_forward", lambda: [k2_cuda.forward(*ops)],
+             lambda: [twin.render_plain(*ops)]),
+            ("fused_render_backward",
+             lambda: k2_cuda.backward(g, *bwd_ops, n_groups=G),
+             lambda: twin.render_backward_plain(g, *bwd_ops, n_groups=G))):
+        outs = kernel()
+        torch.cuda.synchronize()
+        err, rel = 0.0, []
+        for got, want in zip(outs, plain()):
+            diff = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(diff <= K2_TOL * scale, f"{name} G={G}: max|diff| "
+                  f"{diff:.3e} > {K2_TOL * scale:.3e}")
+            err = max(err, diff)
+            rel.append(f"{diff / scale:.2e}")
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
+        (bound_ms, bound_by), (fp32_ms, _), flops = k2_bounds(
+            ops, name.endswith("backward"), True)
+        errs[name] = err
+        say("3d", f"{name} stars: G={G} x 100 epochs, n 24, L 96: max|diff| "
+            f"{err:.3e} (/ max|plain| per output: {', '.join(rel)}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}; fp32 bound {fp32_ms:.4f} ms), {bound_ms / ms:.1%} "
+            f"of it; {flops / ms * 1e-9:.2f} TFLOP/s (card {card})")
+    roi_ops, roi_g = roi
+    one = (*roi_ops[:8], roi_ops[8][None], roi_ops[9][None], *roi_ops[10:])
+    same = torch.equal(k2_cuda.forward(*one), k2_cuda.forward(*roi_ops))
+    bwd = (*roi_ops[:8], *roi_ops[10:])
+    grouped = k2_cuda.backward(roi_g, *bwd, n_groups=1)
+    shared = k2_cuda.backward(roi_g, *bwd)
+    same = same and all(torch.equal(x.reshape(y.shape), y)
+                        for x, y in zip(grouped, shared))
+    verdict = "the same bits" if same else "DIFFER"
+    say("3d", f"K2 at ROI-100, h (1, L, Lh) against the shared (L, Lh) "
+        f"plane, forward and backward: {verdict}")
+    check(same, "K2 with one group differs from the shared plane")
+    return errs
+
+
+def phase_star_small(np, fit_stars_batched, star_photometry_scene,
+                     starlet_cuda, k2, backend, phase):
+    """8 / 8b: a small star fit with a starlet background per star, card
+    against CPU, and the card run's exact launches."""
+    sc = star_photometry_scene(3, 6, 16, 2, n_real=(6, 5, 4))
+    args = (sc["data"], sc["sigma"], sc["psf"], 2)
+    kw = dict(n_iter=60, starlet_global_background=True,
+              irfft_backend=backend)
+    starlet_cuda.launches.reset()
+    k2.reset()
+    t0 = time.perf_counter()
+    card = fit_stars_batched(*args, device="cuda", **kw)
+    t_card = time.perf_counter() - t0
+    k1 = (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint)
+    k2_runs = (k2.forward, k2.backward, k2.forward_h, k2.backward_h)
+    t0 = time.perf_counter()
+    cpu = fit_stars_batched(*args, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    real = np.isfinite(sc["a_true"])
+    dmag = np.abs(2.5 * np.log10(card["fluxes"][real] / cpu["fluxes"][real]))
+    dchi2 = np.abs(card["chi2"] / cpu["chi2"] - 1)
+    say(phase, f"small star fit (3 stars, 6/5/4 real epochs, 16 px, 60 "
+        f"iterations, starlet background, {backend}), card vs cpu: max "
+        f"|dmag| {dmag.max() * 1e3:.4f} mmag, max |dchi2|/chi2 "
+        f"{dchi2.max():.2e}; chi2 {np.round(card['chi2'], 4).tolist()}; "
+        f"card launches K1 forward {k1[0]}, adjoint {k1[1]}, K2 forward "
+        f"{k2_runs[0]}, backward {k2_runs[1]}; wall card {t_card:.2f} s, "
+        f"cpu {t_cpu:.2f} s")
+    check(dmag.max() <= 1e-3, f"small star fit ({backend}): fluxes differ "
+          "by > 1 mmag")
+    check(dchi2.max() <= 0.01, f"small star fit ({backend}): chi2 differs "
+          "by > 1 %")
+    check(k1 == (61, 60), f"small star fit ({backend}): K1 launches {k1}, "
+          "(61, 60) expected")
+    want = (60,) * 4 if backend == "matmul" else (0,) * 4
+    check(k2_runs == want, f"small star fit ({backend}): K2 launches "
+          f"{k2_runs}, {want} expected")
+
+
+def phase_star_full(np, torch, fit_stars_batched, sc, starlet_cuda, k2,
+                    backend, starlet, phase, card):
+    """9 to 9d: the full-width star fit; returns (K1 forward, K1 adjoint,
+    K2 forward, K2 backward) launches of the fit."""
+    n_stars = sc["data"].shape[0]
+    torch.cuda.synchronize()
+    starlet_cuda.launches.reset()
+    k2.reset()
+    t0 = time.perf_counter()
+    out = fit_stars_batched(sc["data"], sc["sigma"], sc["psf"], sc["s"],
+                            n_iter=2000, starlet_global_background=starlet,
+                            irfft_backend=backend)
+    wall = time.perf_counter() - t0
+    runs = (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint,
+            k2.forward, k2.backward)
+    chi2 = float(np.mean(out["chi2"]))
+    dmag = np.abs(2.5 * np.log10(out["fluxes"] / sc["a_true"]))
+    pull = (out["fluxes"] - sc["a_true"]) / out["fluxes_uncertainties"]
+    flags = "starlet background" if starlet else "shipped flags"
+    say(phase, f"full-width star fit (32 stars x 100 epochs, 24 px, s 2, "
+        f"2000 iterations, {flags}, {backend}) on the card: {wall:.3f} s "
+        f"wall, {n_stars / wall:.4f} star fits/s (card {card}); K1 launches "
+        f"forward {runs[0]}, adjoint {runs[1]}; K2 forward {runs[2]}, "
+        f"backward {runs[3]} (with h {k2.forward_h}, {k2.backward_h}); mean "
+        f"reduced chi2 {chi2:.4f}; flux vs a_true: median |dmag| "
+        f"{np.median(dmag) * 1e3:.3f} mmag, pull rms "
+        f"{np.sqrt(np.mean(pull**2)):.3f}")
+    check(np.all(np.isfinite(out["fluxes"]))
+          and np.all(np.isfinite(out["fluxes_uncertainties"])),
+          f"star fit ({flags}, {backend}): non-finite fluxes or errors")
+    check(0.9 <= chi2 <= 1.1, f"star fit ({flags}, {backend}): mean reduced "
+          f"chi2 {chi2} outside [0.9, 1.1]")
+    want = (2001, 2000) if starlet else (0, 0)
+    want += (2000, 2000) if starlet and backend == "matmul" else (0, 0)
+    check(runs == want, f"star fit ({flags}, {backend}): launches {runs}, "
+          f"{want} expected")
+    check(k2.forward_h == runs[2] and k2.backward_h == runs[3],
+          f"star fit ({flags}, {backend}): K2 ran without the background")
+    return runs
+
+
 def fit_scene(fit_roi, config, scene, device, irfft_backend="fft"):
     n = scene["data"].shape[-1]
     n_epochs = scene["data"].shape[0]
@@ -507,6 +665,7 @@ def main():
     check(Path(lightcurver_tpu_torch.__file__).resolve().parent.parent
           == HERE, "lightcurver_tpu_torch does not come from this checkout")
     from lightcurver_tpu_torch.core import starlet as plain
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
     from lightcurver_tpu_torch.core.deconv.model import setup_model
     from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
     from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
@@ -515,7 +674,8 @@ def main():
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
                                                                fit_roi)
     from lightcurver_tpu_torch.utilities.synthetic import (
-        make_roi_scene, psf_bench_frames, psf_pixel_phase_point)
+        make_roi_scene, psf_bench_frames, psf_pixel_phase_point,
+        star_k2_operands, star_photometry_scene)
 
     enforce_fp32()
     card = subprocess.run(
@@ -543,8 +703,18 @@ def main():
     records = phase_kernels(torch, starlet_cuda, plain)
     records.update(phase_k2(torch, fused_render_cuda, fused_render,
                             setup_model, make_roi_scene, card))
-    for name, err in phase_k1_psf(torch, starlet_cuda, plain, card).items():
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    errs = [phase_k1_at(torch, starlet_cuda, plain, card, "3c", 128, 16)]
+    roi = k2_operands(torch, setup_model,
+                      make_roi_scene(n_epochs=100, n_pix=64, s=2,
+                                     n_sources=4, seed=11), seed=64)
+    errs.append(phase_k2_stars(torch, fused_render_cuda, fused_render,
+                               star_k2_operands, roi, card))
+    errs += [phase_k1_at(torch, starlet_cuda, plain, card, "3d", 48, batch)
+             for batch in (32, 6400)]
+    for found in errs:
+        for name, err in found.items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               err)
 
     # noise 0.03, not the default 0.3: at 0.3 the float32 loss pins the
     # faintest epoch's flux only to ~1 mmag (0.02 sigma), so a relative
@@ -607,6 +777,7 @@ def main():
           f"to the fft fit {np.median(dmag) * 1e3:.4f} mmag > "
           f"{DMAG_MATMUL_MAX * 1e3} mmag")
     check(min(stage1) > 0, "stage 1 did not run through K2")
+    k2_fwd, k2_bwd = k2.forward, k2.backward
 
     for backend, phase in (("fft", 6), ("matmul", "6b")):
         phase_psf_small(np, build_psf_batched, psf_bench_frames,
@@ -614,10 +785,24 @@ def main():
     k1_psf = [phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
                              starlet_cuda, backend, phase, card)
               for backend, phase in (("fft", 7), ("matmul", "7b"))]
-    # K1's launches over every run of the main path: ROI-100 on both
-    # renders and the full-width PSF fit on both
-    n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf)
-    n_adj += n_adj_mm + sum(a for _, a in k1_psf)
+    for backend, phase in (("fft", 8), ("matmul", "8b")):
+        phase_star_small(np, fit_stars_batched, star_photometry_scene,
+                         starlet_cuda, k2, backend, phase)
+    stars = star_photometry_scene(32, 100, 24, 2)
+    star_runs = [phase_star_full(np, torch, fit_stars_batched, stars,
+                                 starlet_cuda, k2, backend, starlet, phase,
+                                 card)
+                 for starlet, backend, phase in (
+                     (False, "fft", 9), (False, "matmul", "9b"),
+                     (True, "fft", "9c"), (True, "matmul", "9d"))]
+    # launches over every run of the main path: ROI-100 and the
+    # full-width PSF fit on both renders, the full-width star fits
+    n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
+        + sum(r[0] for r in star_runs)
+    n_adj += n_adj_mm + sum(a for _, a in k1_psf) \
+        + sum(r[1] for r in star_runs)
+    k2_fwd += sum(r[2] for r in star_runs)
+    k2_bwd += sum(r[3] for r in star_runs)
 
     csrc = "lightcurver_tpu_torch/csrc/"
     kernels = {
@@ -629,12 +814,12 @@ def main():
         "fused_render_forward": (
             "fused_render.cu",
             "lightcurver_tpu/ops/experimental/fused_render.py:55",
-            k2.forward),
+            k2_fwd),
         # the JAX kernel's VJP was planned there and never built
         "fused_render_backward": (
             "fused_render.cu",
             "lightcurver_tpu/ops/experimental/fused_render.py:20",
-            k2.backward),
+            k2_bwd),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source,

@@ -1,5 +1,5 @@
-"""lightcurver_tpu_torch: the joint ROI deconvolution and the narrow-PSF
-fit in PyTorch, for CUDA.
+"""lightcurver_tpu_torch: the joint ROI deconvolution, the narrow-PSF fit
+and the star-batched photometry in PyTorch, for CUDA.
 
 A port of the numerical core of ``lightcurver_tpu`` (JAX) to PyTorch. The
 layout mirrors the JAX package (``core/``, ``core/deconv/``,
@@ -25,7 +25,9 @@ Entry points, each on the card unless the caller passes ``device="cpu"``:
 - :func:`lightcurver_tpu_torch.core.psf.build.build_psf`, the narrow PSF
   of one frame;
 - :func:`lightcurver_tpu_torch.core.psf.batched.build_psf_batched`, the
-  narrow PSFs of many frames at once.
+  narrow PSFs of many frames at once;
+- :func:`lightcurver_tpu_torch.core.deconv.batched.fit_stars_batched`, the
+  joint photometry of a bucket of stars at once.
 """
 
 __version__ = "0.1.0"

@@ -22,7 +22,17 @@ them when asked for that backend), the all-real matmul-DFT render of
 the raw PSF spectra, through the fused kernel K2 (``ops/fused_render.py``;
 hand-written CUDA on the card), or, for one source with a fixed
 background, the rank-1 modulated inverse ``ops.dft.irfft2_pool_shift_matmul``.
-The PSF spectra are computed once, at construction, on the PSF's device.
+With constants that carry the DFT matrices but no raw spectra (JAX's star
+finalize), the pooled branches: one source through the rank-1 inverse on
+``ps_hat``, the background through the pooled ``_h_render``.
+The PSF spectra are computed once, at construction, on the PSF's device:
+by cuFFT, or by the matmul DFT when the model is given ``dft_mats`` (as
+the JAX star photometry computes them on "mxu").
+
+Groups (the star photometry): with ``n_groups`` G the N epochs are G
+problems of N / G consecutive epochs each, as the JAX package's
+``jax.vmap`` over stars: ``c_x``, ``c_y`` are (G, M) and ``h`` is
+(G, m*m), one per group; everything else is per epoch.
 """
 
 import numpy as np
@@ -59,7 +69,7 @@ class DeconvModel:
     """
 
     def __init__(self, psf, subsampling_factor, image_size, n_epochs,
-                 n_sources):
+                 n_sources, n_groups=None, dft_mats=None):
         """
         Args:
             psf: (N, mp, mp) float32 tensor, per-epoch narrow PSFs on the
@@ -68,33 +78,72 @@ class DeconvModel:
             image_size: n, the data stamp side.
             n_epochs: N.
             n_sources: M.
+            n_groups: None (one background and one set of positions for
+                all epochs) or G dividing N (see the module docstring).
+            dft_mats: ``ops.dft.make_dft_mats(2m, m, pool=s)`` to compute
+                the PSF spectra by matmul DFT (and to serve as the matrices
+                of :meth:`matmul_consts`); None for cuFFT.
         """
         self.s = int(subsampling_factor)
         self.image_size = int(image_size)
         self.n_epochs = int(n_epochs)
         self.n_sources = int(n_sources)
         self.m = self.image_size * self.s
+        if n_groups is not None and (n_groups < 1
+                                     or self.n_epochs % n_groups):
+            raise ValueError(f"n_groups={n_groups} does not divide the "
+                             f"{self.n_epochs} epochs")
+        self.n_groups = n_groups
         self.device = psf.device
+        self._dft_mats = dft_mats
         psf = pad_psf_to(psf.to(torch.float32), self.m)
-        # unit flux per epoch, so `a` is total flux
-        self.psf_pad = psf / psf.sum(dim=(-2, -1), keepdim=True)
-        t_hat = conv.psf_fft(self.psf_pad)
+        # unit flux per epoch, so `a` is total flux; an all-zero PSF (a
+        # dummy epoch) stays zero instead of 0/0
+        psf_sum = psf.sum(dim=(-2, -1), keepdim=True)
+        self.psf_pad = psf / torch.where(psf_sum > 0, psf_sum,
+                                         torch.ones_like(psf_sum))
+        t_hat = conv.psf_fft(self.psf_pad) if dft_mats is None \
+            else dft.rfft2_pad_matmul(self.psf_pad, dft_mats)
         self.ps_hat = t_hat * conv.r_kernel_fft(self.m, self.s, self.device)
         self.grid_hat = t_hat * conv.grid_center_phase(self.m, self.device)
 
     def source_positions(self, kwargs):
         """Per-epoch positions (px, py), each (N, M), data px, centre origin."""
         ka = kwargs["kwargs_analytic"]
+        cx, cy = ka["c_x"], ka["c_y"]
+        if self.n_groups is not None:
+            # (G, M): each group's positions, repeated over its epochs
+            per = self.n_epochs // self.n_groups
+            cx = cx.repeat_interleave(per, dim=0)
+            cy = cy.repeat_interleave(per, dim=0)
         th = torch.deg2rad(ka["alpha"])[:, None]
-        px = torch.cos(th) * ka["c_x"] - torch.sin(th) * ka["c_y"] \
-            + ka["dx"][:, None]
-        py = torch.sin(th) * ka["c_x"] + torch.cos(th) * ka["c_y"] \
-            + ka["dy"][:, None]
+        px = torch.cos(th) * cx - torch.sin(th) * cy + ka["dx"][:, None]
+        py = torch.sin(th) * cx + torch.cos(th) * cy + ka["dy"][:, None]
         return px, py
+
+    def _h_planes(self, h_flat):
+        """The background as (m, m), or (G, m, m) with groups."""
+        m = self.m
+        if self.n_groups is None:
+            return h_flat.reshape(m, m)
+        return h_flat.reshape(self.n_groups, m, m)
+
+    def _per_epoch(self, h_part, spectra):
+        """``h_part * spectra``: an (L, Lh) plane broadcast over the (N, L,
+        Lh) epochs, or (G, L, Lh) planes, each over its group's epochs."""
+        if self.n_groups is None:
+            return h_part * spectra
+        return (h_part[:, None] * spectra.unflatten(0, (self.n_groups, -1))
+                ).flatten(0, 1)
 
     def spectra_real(self):
         """Raw per-epoch PSF spectra ``{"t_re", "t_im"}``, (N, L, L/2+1)
-        float32 each (cuFFT, as the JAX ``Loss`` computes them)."""
+        float32 each (cuFFT, as the JAX ``Loss`` computes them, or the
+        matmul DFT when the model was given ``dft_mats``)."""
+        if self._dft_mats is not None:
+            t_re, t_im = dft.rfft2_pad_matmul_parts(self.psf_pad,
+                                                    self._dft_mats)
+            return {"t_re": t_re, "t_im": t_im}
         t_hat = conv.psf_fft(self.psf_pad)
         return {"t_re": t_hat.real.contiguous(),
                 "t_im": t_hat.imag.contiguous()}
@@ -109,25 +158,29 @@ class DeconvModel:
         m = self.m
         # the centre phase from its 1-D factors, as JAX's _model_all_real
         gy_re, gy_im, gx_re, gx_im = conv.grid_center_phase_1d(m, self.device)
-        return {"dft_mats": dft.make_dft_mats(2 * m, m, pool=self.s,
-                                              device=self.device),
+        mats = self._dft_mats if self._dft_mats is not None \
+            else dft.make_dft_mats(2 * m, m, pool=self.s, device=self.device)
+        return {"dft_mats": mats,
                 **self.spectra_real(),
                 "r_hat": conv.r_kernel_fft(m, self.s, self.device),
                 "pc": gy_re[:, None] * gx_re - gy_im[:, None] * gx_im,
                 "ps": gy_re[:, None] * gx_im + gy_im[:, None] * gx_re}
 
     def _h_render(self, h_flat, consts=None):
-        """down(conv(t_e, h)) for every epoch: (N, n, n); with the
-        constants of :meth:`matmul_consts`, by the pooled matmul DFT."""
+        """down(conv(t_e, h)) for every epoch: (N, n, n); with constants
+        that carry ``dft_mats``, by the pooled matmul DFT."""
         m = self.m
+        h = self._h_planes(h_flat)
         if consts is not None:
             mats = consts["dft_mats"]
-            h_hat = dft.rfft2_pad_matmul(h_flat.reshape(m, m), mats)
-            return dft.irfft2_pool_matmul(h_hat * self.grid_hat, mats)
+            h_hat = dft.rfft2_pad_matmul(h, mats)
+            return dft.irfft2_pool_matmul(self._per_epoch(h_hat,
+                                                          self.grid_hat),
+                                          mats)
         L = conv.pad_len(m)
-        h_hat = torch.fft.rfft2(h_flat.reshape(m, m), s=(L, L))
-        return downsample(conv.render_from_fft(h_hat * self.grid_hat, m),
-                          self.s)
+        h_hat = torch.fft.rfft2(h, s=(L, L))
+        return downsample(conv.render_from_fft(
+            self._per_epoch(h_hat, self.grid_hat), m), self.s)
 
     def model(self, kwargs, fixed_h_render=None, consts=None):
         """Modelled data stamps (N, n, n).
@@ -135,21 +188,26 @@ class DeconvModel:
         ``fixed_h_render``: the precomputed :meth:`_h_render` of a FIXED
         background (``Loss`` passes it); then ``h`` is not rendered again.
         ``consts``: those of :meth:`matmul_consts` select the all-real
-        matmul-DFT render; None the cuFFT one.
+        matmul-DFT render; ``{"dft_mats": ...}`` alone (no raw spectra)
+        the pooled rank-1 render of one source on ``ps_hat``, as the JAX
+        model's ``pooled and M == 1`` branch; None the cuFFT one.
         """
         m, s, M = self.m, self.s, self.n_sources
         ka = kwargs["kwargs_analytic"]
         kb = kwargs["kwargs_background"]
         a = ka["a"].reshape(self.n_epochs, M)
         px, py = self.source_positions(kwargs)
-        if consts is not None:
+        if consts is not None and "t_re" in consts:
             return self._model_all_real(a, px, py, kb, consts,
                                         fixed_h_render)
+        if consts is not None:
+            return self._model_pooled_rank1(a, px, py, kb, consts,
+                                            fixed_h_render)
         total_hat = conv.point_source_spectrum(m, s, a, px, py) * self.ps_hat
         if fixed_h_render is None:
             L = conv.pad_len(m)
-            h_hat = torch.fft.rfft2(kb["h"].reshape(m, m), s=(L, L))
-            total_hat = total_hat + h_hat * self.grid_hat
+            h_hat = torch.fft.rfft2(self._h_planes(kb["h"]), s=(L, L))
+            total_hat = total_hat + self._per_epoch(h_hat, self.grid_hat)
         data = downsample(conv.render_from_fft(total_hat, m), s)
         if fixed_h_render is not None:
             data = data + fixed_h_render
@@ -167,7 +225,8 @@ class DeconvModel:
         u_re, u_im, v = conv.point_source_ramp_stacks(m, s, a, px, py)
         h_re = h_im = None
         if h is not None:
-            h_re, h_im = dft.rfft2_pad_matmul_parts(h.reshape(m, m), mats)
+            # (L, Lh), or with groups (G, L, Lh): one plane per group
+            h_re, h_im = dft.rfft2_pad_matmul_parts(self._h_planes(h), mats)
         return (u_re, u_im, v, consts["t_re"], consts["t_im"],
                 consts["r_hat"], consts["pc"], consts["ps"], h_re, h_im,
                 mats["Ayp"], mats["Byp"], mats["Cxp"], mats["Sxp"])
@@ -199,15 +258,54 @@ class DeconvModel:
             data = data + fixed_h
         return data + kb["mean"][:, None, None]
 
-    def background_only(self, kwargs, fixed_h_render=None):
-        """The flux-independent channels: h render + per-epoch mean."""
+    def _model_pooled_rank1(self, a, px, py, kb, consts, fixed_h):
+        """One source through the rank-1 modulated inverse on ``ps_hat``
+        (the r kernel already in it), plus the pooled background: the JAX
+        model's ``pooled and M == 1`` branch."""
+        if self.n_sources != 1:
+            raise ValueError("the pooled render without raw spectra takes "
+                             f"one source, not {self.n_sources}")
+        u_re, u_im, v_re, v_im = conv.point_source_ramps(
+            self.m, self.s, a[:, 0], px[:, 0], py[:, 0])
+        data = dft.irfft2_pool_shift_matmul(
+            self.ps_hat.real, self.ps_hat.imag, u_re, u_im, v_re, v_im,
+            consts["dft_mats"])
+        h_part = fixed_h if fixed_h is not None \
+            else self._h_render(kb["h"], consts)
+        return data + h_part + kb["mean"][:, None, None]
+
+    def background_only(self, kwargs, fixed_h_render=None, consts=None):
+        """The flux-independent channels: h render + per-epoch mean.
+
+        Twin of the JAX ``background_only``: each branch has the h
+        expression of the matching :meth:`model` branch, in its order of
+        association (the GLS polish baseline depends on it): the fixed
+        render; with :meth:`matmul_consts`, h on the raw spectra as in
+        :meth:`_model_all_real`; else the pooled (``consts`` with
+        ``dft_mats``) or cuFFT :meth:`_h_render`.
+        """
         kb = kwargs["kwargs_background"]
-        h_part = fixed_h_render if fixed_h_render is not None \
-            else self._h_render(kb["h"])
+        if fixed_h_render is not None:
+            h_part = fixed_h_render
+        elif consts is not None and "t_re" in consts:
+            mats = consts["dft_mats"]
+            h_re, h_im = dft.rfft2_pad_matmul_parts(
+                self._h_planes(kb["h"]), mats)
+            cp_re, cp_im = consts["pc"], consts["ps"]
+            hp_re = h_re * cp_re - h_im * cp_im
+            hp_im = h_re * cp_im + h_im * cp_re
+            t_re, t_im = consts["t_re"], consts["t_im"]
+            x_re = self._per_epoch(hp_re, t_re) - self._per_epoch(hp_im, t_im)
+            x_im = self._per_epoch(hp_re, t_im) + self._per_epoch(hp_im, t_re)
+            h_part = dft.irfft2_pool_matmul_parts(x_re, x_im, mats)
+        else:
+            h_part = self._h_render(kb["h"], consts)
         return h_part + kb["mean"][:, None, None]
 
-    def point_source_basis(self, kwargs):
-        """Unit-flux data-grid images of each source: (N, M, n, n)."""
+    def point_source_basis(self, kwargs, consts=None):
+        """Unit-flux data-grid images of each source: (N, M, n, n);
+        with ``consts`` carrying ``dft_mats``, by the pooled matmul DFT
+        (the JAX ``point_source_basis`` on "mxu"), else by cuFFT."""
         m, s = self.m, self.s
         px, py = self.source_positions(kwargs)
         ones = torch.ones_like(px[:, :1])
@@ -215,7 +313,11 @@ class DeconvModel:
         for j in range(self.n_sources):
             prod = conv.point_source_spectrum(
                 m, s, ones, px[:, j, None], py[:, j, None]) * self.ps_hat
-            basis.append(downsample(conv.render_from_fft(prod, m), s))
+            if consts is not None:
+                basis.append(dft.irfft2_pool_matmul(prod,
+                                                    consts["dft_mats"]))
+            else:
+                basis.append(downsample(conv.render_from_fft(prod, m), s))
         return torch.stack(basis, dim=1)
 
     def getDeconvolved(self, kwargs, epoch=0):

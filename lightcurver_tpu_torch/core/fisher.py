@@ -10,13 +10,25 @@ diagonal Fisher information is ``sum_px B^2 / sigma^2``.
 import torch
 
 
-def linear_flux_solve(kwargs, data, sigma_2, model):
+def _diag_fisher(basis, sigma_2):
+    """1-sigma flux errors (N, M) from the unit-flux images ``basis``
+    (N, M, n, n) and the variances ``sigma_2`` (N, n, n)."""
+    info = torch.nansum(basis**2 / sigma_2[:, None, :, :], dim=(-2, -1))
+    return 1.0 / torch.sqrt(info)
+
+
+def linear_flux_solve(kwargs, data, sigma_2, model, consts=None,
+                      fixed_h_render=None):
     """kwargs with ``a`` replaced by the per-epoch GLS solution.
 
     Pixels where the data or sigma_2 is not finite get zero weight.
+    ``consts`` and ``fixed_h_render`` choose the render of the basis and
+    of the baseline as for ``DeconvModel.point_source_basis`` and
+    ``background_only`` (JAX passes both in its ``consts``).
     """
-    basis = model.point_source_basis(kwargs)                # (N, M, n, n)
-    baseline = model.background_only(kwargs)                # (N, n, n)
+    basis = model.point_source_basis(kwargs, consts)        # (N, M, n, n)
+    baseline = model.background_only(kwargs, fixed_h_render,
+                                     consts)                 # (N, n, n)
     w = torch.where(torch.isfinite(sigma_2) & torch.isfinite(data),
                     1.0 / sigma_2, torch.zeros_like(sigma_2))
     r = torch.nan_to_num(data - baseline)
@@ -38,7 +50,5 @@ def linear_flux_solve(kwargs, data, sigma_2, model):
 
 def get_flux_uncertainties(kwargs, noisemap, model):
     """1-sigma errors of ``a``, flat in ``a``'s layout (e * M + j)."""
-    sigma_2 = noisemap**2
-    basis = model.point_source_basis(kwargs)
-    info = torch.nansum(basis**2 / sigma_2[:, None, :, :], dim=(-2, -1))
-    return (1.0 / torch.sqrt(info)).reshape(-1)
+    return _diag_fisher(model.point_source_basis(kwargs),
+                        noisemap**2).reshape(-1)

@@ -28,39 +28,42 @@ from ..ops.starlet_op import starlet_transform
 def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
     """Per-coefficient std of starlet(adjoint(sigma * draws)).
 
+    Leading dims B (none for one problem; the star axis S of the star
+    photometry, JAX's ``_mc_starlet_noise`` under ``jax.vmap``) are shared
+    by all inputs and kept; the starlet of all B x K samples is one call.
+
     Args:
-        sigma: (n, n) data-grid noise sigma; non-finite pixels contribute
-            no noise.
-        mean_ps_hat: (L, L/2+1) complex mean point-source spectrum.
-        draws: (S, n, n) standard-normal samples.
+        sigma: (B..., n, n) data-grid noise sigma; non-finite pixels
+            contribute no noise.
+        mean_ps_hat: (B..., L, L/2+1) complex mean point-source spectrum.
+        draws: (B..., K, n, n) standard-normal samples.
         dft_mats: ``ops.dft.make_dft_mats(L, m)`` to correlate by matmul
             DFT; None for cuFFT.
 
     Returns:
-        (J + 1, m, m), floored at 1e-12.
+        (B..., J + 1, m, m), floored at 1e-12.
     """
     L = conv.pad_len(m)
     sigma = torch.where(torch.isfinite(sigma), sigma, torch.zeros_like(sigma))
-    fine = upsample_transpose(sigma * draws, s)
+    fine = upsample_transpose(sigma[..., None, :, :] * draws, s)
+    conj_ps = torch.conj(mean_ps_hat)[..., None, :, :]
     if dft_mats is not None:
         back = dft.irfft2_crop_matmul(
-            dft.rfft2_pad_matmul(fine, dft_mats) * torch.conj(mean_ps_hat),
-            dft_mats)
+            dft.rfft2_pad_matmul(fine, dft_mats) * conj_ps, dft_mats)
     else:
         fine_hat = torch.fft.rfft2(fine, s=(L, L))
-        back = conv.hermitian_irfft2(fine_hat * torch.conj(mean_ps_hat),
-                                     L)[..., :m, :m]
-    coeffs = starlet_transform(back.contiguous())
-    return torch.clamp(torch.std(coeffs, dim=0, correction=0), min=1e-12)
+        back = conv.hermitian_irfft2(fine_hat * conj_ps, L)[..., :m, :m]
+    coeffs = starlet_transform(back.contiguous())     # (B..., K, J+1, m, m)
+    return torch.clamp(torch.std(coeffs, dim=-4, correction=0), min=1e-12)
 
 
-def epoch_nanmedian(stack):
-    """Per-pixel NaN-median over the leading (epoch) axis.
+def epoch_nanmedian(stack, dim=0):
+    """Per-pixel NaN-median over the epoch axis ``dim``.
 
     For an even count of finite values it is the mean of the two middle
     ones, as ``jnp.nanmedian``; ``torch.nanmedian`` returns the lower one.
     """
-    return torch.nanquantile(stack, 0.5, dim=0)
+    return torch.nanquantile(stack, 0.5, dim=dim)
 
 
 def propagate_noise(model, noisemap, num_samples=500, seed=1,

@@ -18,6 +18,12 @@
 //   dv[c]    = sum_k dspec_re[k] u_re[c, k] + dspec_im[k] u_im[c, k]
 //   dh_hat   = sum_e dX_e * conj(t_hat_e * (pc + i ps))   (across epochs)
 //
+// The background h_hat is one (L, Lh) plane for all N epochs, or G planes,
+// one per group of N / G consecutive epochs: epoch e reads plane
+// e / (N / G), and dh_hat of a plane sums that group's epochs (the star
+// photometry flattens S stars x N epochs into S N render epochs, each star
+// with its own background: G = S). G = 1 is the shared plane.
+//
 // What bounds the forward. Per epoch 4 n L Lh + 2 n^2 Lh multiply-adds in
 // the two products and 2 C L Lh in the spectrum: at N 100, n 64, L 256,
 // Lh 129, C 8 that is 1.00 G multiply-adds, 30 us on the CUDA cores in
@@ -418,7 +424,7 @@ k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
                 const float* __restrict__ h_im, const float* __restrict__ ayp,
                 const float* __restrict__ byp, const float* __restrict__ cxp,
                 const float* __restrict__ sxp, float* __restrict__ out,
-                int C, int L, int Lh, int n, int include_h) {
+                int C, int L, int Lh, int n, int include_h, int epg) {
   constexpr int kGroups = R / 16;                 // row groups of 16
   constexpr int kNGroups = kMmaWarps / kGroups;   // n-groups, mma warps
   constexpr int kNQ = (NT * kNGroups + 3) / 4;
@@ -473,13 +479,15 @@ k2_forward_rows(const float* __restrict__ u_re, const float* __restrict__ u_im,
     const int n_planes = include_h ? kPlanes : 3;
     const size_t te = static_cast<size_t>(e) * L * Lh;
     const size_t ue = static_cast<size_t>(e) * C * L;
+    // the h plane of this epoch's group of epg epochs
+    const size_t he = static_cast<size_t>(e / epg) * L * Lh;
     auto fetch = [&](int it) {
       const int k0 = chunk_k0(it);
       const int kc = min(kcm, L - k0);
       const size_t o = static_cast<size_t>(k0) * Lh;
       const float* planes[kPlanes] = {t_re + te + o, t_im + te + o,
-                                      r_hat + o, pc + o, ps + o, h_re + o,
-                                      h_im + o};
+                                      r_hat + o, pc + o, ps + o,
+                                      h_re + he + o, h_im + he + o};
       float* dst = raw_buf(it & 1);
 #pragma unroll
       for (int i = 0; i < kPlanes; ++i)
@@ -1026,13 +1034,13 @@ cudaError_t launch_forward(const float* u_re, const float* u_im,
                            const float* ayp, const float* byp,
                            const float* cxp, const float* sxp, float* out,
                            int N, int C, int L, int Lh, int n, int include_h,
-                           int smem, cudaStream_t s) {
+                           int epg, int smem, cudaStream_t s) {
   cudaError_t e = allow_smem(k2_forward_rows<NT, R>, smem,
                              &g_forward_smem[R / 64][NT]);
   if (e != cudaSuccess) return e;
   k2_forward_rows<NT, R><<<dim3((n + R - 1) / R, N), kFwdThreads, smem, s>>>(
       u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp,
-      sxp, out, C, L, Lh, n, include_h);
+      sxp, out, C, L, Lh, n, include_h, epg);
   return cudaGetLastError();
 }
 
@@ -1070,21 +1078,25 @@ const char* k2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out: (N, n, n), written whole by one launch. h_re, h_im are not read
-// when include_h is 0.
+// out: (N, n, n), written whole by one launch. h_re, h_im: (G, L, Lh),
+// G = n_groups dividing N; not read when include_h is 0.
 int k2_forward(const float* u_re, const float* u_im, const float* v,
                const float* t_re, const float* t_im, const float* r_hat,
                const float* pc, const float* ps, const float* h_re,
                const float* h_im, const float* ayp, const float* byp,
                const float* cxp, const float* sxp, float* out, int N, int C,
-               int L, int Lh, int n, int include_h, void* stream) {
+               int L, int Lh, int n, int include_h, int n_groups,
+               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_groups < 1 || N % n_groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int epg = N / n_groups;
   const int smem = k2_smem_bytes(0, C, L, Lh, n, 0);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int R = fwd_rows(L, Lh, n);
 #define K2_ARGS                                                             \
   u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im, ayp, byp, cxp, sxp, \
-      out, N, C, L, Lh, n, include_h, smem, s
+      out, N, C, L, Lh, n, include_h, epg, smem, s
 #define K2_FORWARD(NT, R)                                                   \
   case NT:                                                                  \
     return static_cast<int>(launch_forward<NT, R>(K2_ARGS))
@@ -1122,17 +1134,20 @@ int k2_forward(const float* u_re, const float* u_im, const float* v,
 // (ops/fused_render_cuda.py::backward_slabs). du_part: scratch
 // (2, N, n_slabs, C, L), not touched (and may be null) with one slab;
 // du: (2, N, C, L) = du_re, du_im; dv: (N, C, Lh); dh_part: scratch
-// (2, N, L, Lh); dh: (2, L, Lh) = dh_re, dh_im. dh_part and dh are not
-// touched when include_h is 0. One launch, plus one sum_middle for du with
-// more than one slab and one for dh with h.
+// (2, N, L, Lh); dh: (2, G, L, Lh) = dh_re, dh_im, G = n_groups dividing
+// N, each plane summed over its group's N / G epochs. dh_part and dh are
+// not touched when include_h is 0. One launch, plus one sum_middle for du
+// with more than one slab and one for dh with h.
 int k2_backward(const float* g, const float* u_re, const float* u_im,
                 const float* v, const float* t_re, const float* t_im,
                 const float* r_hat, const float* pc, const float* ps,
                 const float* ayp, const float* byp, const float* cxp,
                 const float* sxp, float* du_part, float* du, float* dv,
                 float* dh_part, float* dh, int N, int C, int L, int Lh, int n,
-                int include_h, int n_slabs, void* stream) {
+                int include_h, int n_slabs, int n_groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_groups < 1 || N % n_groups)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = k2_smem_bytes(1, C, L, Lh, n, n_slabs);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem(k2_backward_slab<kBwdChunk>, smem,
@@ -1149,8 +1164,10 @@ int k2_backward(const float* g, const float* u_re, const float* u_im,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (!include_h) return static_cast<int>(cudaSuccess);
-  // dh_hat over epochs, in epoch order
-  return static_cast<int>(launch_sum_middle(dh_part, dh, 2, N, L * Lh, s));
+  // dh_hat over each group's epochs, in epoch order: dh_part (2, N, L, Lh)
+  // is (2 G, N / G, L Lh)
+  return static_cast<int>(launch_sum_middle(dh_part, dh, 2 * n_groups,
+                                            N / n_groups, L * Lh, s));
 }
 
 }  // extern "C"

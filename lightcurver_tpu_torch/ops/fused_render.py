@@ -10,12 +10,16 @@ with the operands of the TPU kernel ``_fwd_kernel``:
     out    = Re{(A + iB) @ (Cxp + i Sxp)}     stage 2, on the data grid
 
 Shapes: u_re, u_im (N, 2M, L); v (N, 2M, Lh); t_re, t_im (N, L, Lh);
-r_hat, pc, ps, h_re, h_im (L, Lh); Ayp, Byp (n, L); Cxp, Sxp (Lh, n);
+r_hat, pc, ps (L, Lh); h_re, h_im (L, Lh), or (G, L, Lh) with G dividing
+N: one background per group of N / G consecutive epochs, the counterpart
+of ``jax.vmap`` over the stars of the star photometry, whose S stars x N
+epochs render as S N epochs with G = S; Ayp, Byp (n, L); Cxp, Sxp (Lh, n);
 out (N, n, n); float32. This is ``_model_all_real`` of the JAX model
 without the mean term. The JAX kernel is forward-only; here the gradient
 with respect to u_re, u_im, v (per epoch) and h_re, h_im (summed over
-epochs) is written out in :func:`render_backward_plain`. With
-G the (n, n) cotangent of an epoch, P = Ayp + i Byp and Q = Cxp + i Sxp:
+the epochs of each plane) is written out in :func:`render_backward_plain`.
+With G the (n, n) cotangent of an epoch, P = Ayp + i Byp and
+Q = Cxp + i Sxp:
 
     dX_re = Re(P^T G Q^T),  dX_im = -Im(P^T G Q^T)
 
@@ -43,6 +47,22 @@ def _h_factor(t_re, t_im, pc, ps):
     return t_re * pc - t_im * ps, t_re * ps + t_im * pc
 
 
+def _per_epoch(h, n_epochs):
+    """An (L, Lh) plane as it is (it broadcasts), or (G, L, Lh) planes
+    repeated to one per epoch, (N, L, Lh)."""
+    if h.dim() == 2:
+        return h
+    return h.repeat_interleave(n_epochs // h.shape[0], dim=0)
+
+
+def _group_sum(x, n_groups):
+    """(N, L, Lh) summed over all epochs (``n_groups`` None), or over each
+    group of N / G consecutive epochs, (G, L, Lh)."""
+    if n_groups is None:
+        return x.sum(dim=0)
+    return x.unflatten(0, (n_groups, -1)).sum(dim=1)
+
+
 def render_plain(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
                  ayp, byp, cxp, sxp, include_h=True):
     """The K2 forward in plain torch, (N, n, n); any float dtype."""
@@ -53,6 +73,8 @@ def render_plain(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
     x_im = spec_re * p_im + spec_im * p_re
     if include_h:
         g_re, g_im = _h_factor(t_re, t_im, pc, ps)
+        N = u_re.shape[0]
+        h_re, h_im = _per_epoch(h_re, N), _per_epoch(h_im, N)
         x_re = x_re + h_re * g_re - h_im * g_im
         x_im = x_im + h_re * g_im + h_im * g_re
     a = torch.matmul(ayp, x_re) - torch.matmul(byp, x_im)
@@ -61,10 +83,11 @@ def render_plain(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
 
 
 def render_backward_plain(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
-                          ayp, byp, cxp, sxp, include_h=True):
+                          ayp, byp, cxp, sxp, include_h=True, n_groups=None):
     """Cotangents ``(du_re, du_im, dv, dh_re, dh_im)`` of
     :func:`render_plain` for the output cotangent ``g`` (N, n, n); the
-    h terms are None without ``include_h``."""
+    h terms are None without ``include_h``, else (L, Lh), or (G, L, Lh)
+    with ``n_groups`` G."""
     da = torch.matmul(g, cxp.T)                           # (N, n, Lh)
     db = -torch.matmul(g, sxp.T)
     dx_re = torch.matmul(ayp.T, da) + torch.matmul(byp.T, db)
@@ -79,8 +102,8 @@ def render_backward_plain(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps,
     dh_re = dh_im = None
     if include_h:
         g_re, g_im = _h_factor(t_re, t_im, pc, ps)
-        dh_re = (dx_re * g_re + dx_im * g_im).sum(dim=0)
-        dh_im = (dx_im * g_re - dx_re * g_im).sum(dim=0)
+        dh_re = _group_sum(dx_re * g_re + dx_im * g_im, n_groups)
+        dh_im = _group_sum(dx_im * g_re - dx_re * g_im, n_groups)
     return du_re, du_im, dv, dh_re, dh_im
 
 
@@ -95,6 +118,8 @@ class _FusedRender(torch.autograd.Function):
             raise ValueError(f"fused_render: {', '.join(wants)} are "
                              "constants and may not require grad")
         ctx.include_h = include_h
+        ctx.n_groups = fused_render_cuda.h_groups(h_re, u_re.shape[0]) \
+            if include_h else None
         consts = (t_re, t_im, r_hat, pc, ps, ayp, byp, cxp, sxp)
         ctx.save_for_backward(u_re, u_im, v, *consts)
         args = (u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
@@ -108,18 +133,18 @@ class _FusedRender(torch.autograd.Function):
         g = g.contiguous()
         if g.device.type == "cpu":
             du_re, du_im, dv, dh_re, dh_im = render_backward_plain(
-                g, *ctx.saved_tensors, ctx.include_h)
+                g, *ctx.saved_tensors, ctx.include_h, ctx.n_groups)
         else:
             du_re, du_im, dv, dh_re, dh_im = fused_render_cuda.backward(
-                g, *ctx.saved_tensors, ctx.include_h)
+                g, *ctx.saved_tensors, ctx.include_h, ctx.n_groups)
         return (du_re, du_im, dv, None, None, None, None, None, dh_re,
                 dh_im, None, None, None, None, None)
 
 
 def fused_render(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
                  ayp, byp, cxp, sxp, include_h=True):
-    """Differentiable K2 render, (N, n, n); ``h_re``/``h_im`` may be None
-    when ``include_h`` is False."""
+    """Differentiable K2 render, (N, n, n); ``h_re``/``h_im`` (L, Lh) or
+    (G, L, Lh), and None when ``include_h`` is False."""
     return _FusedRender.apply(u_re.contiguous(), u_im.contiguous(),
                               v.contiguous(), t_re, t_im, r_hat, pc, ps,
                               h_re.contiguous() if include_h else None,

@@ -17,8 +17,12 @@ k axis (L) in steps of 8; where L is not a multiple of 8 (an odd stamp at
 s = 2 gives L = 4 mod 8) the wrappers pad it with zeros (:func:`pad_k`)
 and slice the gradients back. The backward splits the half axis into
 slabs by :func:`backward_slabs`, a plain function of the shapes and the
-card's shared memory. The counts in :data:`launches` grow by one per call
-that launches the kernels and nowhere else.
+card's shared memory. The background planes h_re, h_im are one (L, Lh)
+plane for every epoch, or (G, L, Lh), one per group of N / G consecutive
+epochs (the star photometry's per-star background); dh comes back in the
+same layout, each plane summed over its group. The counts in
+:data:`launches` grow by one per call that launches the kernels and
+nowhere else.
 
 Numbers: kernel times in PERF.md were taken on an NVIDIA H100 and carry
 the card's name and power limit; no TPU figure applies here.
@@ -70,8 +74,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.k2_forward.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
-            lib.k2_backward.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
+            lib.k2_forward.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
+            lib.k2_backward.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
             for fn in (lib.k2_forward, lib.k2_backward):
                 fn.restype = i32
             for name, args in (("k2_smem_optin", [i32]),
@@ -112,12 +116,27 @@ def _check(what, device, operands):
             raise ValueError(f"{what}: {name}: contiguous tensor expected")
 
 
-def _shapes(N, C, L, Lh, n):
+def _shapes(N, C, L, Lh, n, n_groups=None):
+    h = (L, Lh) if n_groups is None else (n_groups, L, Lh)
     return {"u_re": (N, C, L), "u_im": (N, C, L), "v": (N, C, Lh),
             "t_re": (N, L, Lh), "t_im": (N, L, Lh), "r_hat": (L, Lh),
-            "pc": (L, Lh), "ps": (L, Lh), "h_re": (L, Lh), "h_im": (L, Lh),
+            "pc": (L, Lh), "ps": (L, Lh), "h_re": h, "h_im": h,
             "ayp": (n, L), "byp": (n, L), "cxp": (Lh, n), "sxp": (Lh, n),
             "g": (N, n, n)}
+
+
+def h_groups(h_re, n_epochs):
+    """G of a background plane stack: None for one (L, Lh) plane shared
+    by every epoch, else the leading extent of (G, L, Lh), which must
+    divide ``n_epochs``."""
+    if h_re is None or h_re.dim() == 2:
+        return None
+    G = h_re.shape[0]
+    if h_re.dim() != 3 or G < 1 or n_epochs % G:
+        raise ValueError(f"fused_render: h of shape {tuple(h_re.shape)}: "
+                         f"(L, Lh) or (G, L, Lh) with G dividing the "
+                         f"{n_epochs} epochs expected")
+    return G
 
 
 def pad_k(ops):
@@ -228,7 +247,8 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
     the tensor cores, float32 accuracy), with no scratch and no atomics."""
     what = "fused_render forward"
     N, C, L, Lh, n = _geometry(what, u_re, v, ayp)
-    shapes = _shapes(N, C, L, Lh, n)
+    n_groups = h_groups(h_re, N) if include_h else None
+    shapes = _shapes(N, C, L, Lh, n, n_groups)
     named = dict(u_re=u_re, u_im=u_im, v=v, t_re=t_re, t_im=t_im,
                  r_hat=r_hat, pc=pc, ps=ps, ayp=ayp, byp=byp, cxp=cxp,
                  sxp=sxp)
@@ -251,7 +271,8 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
     with torch.cuda.device(u_re.device):
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
         rc = lib.k2_forward(*(_ptr(x) for x in (*ops, out)),
-                            N, C, L, Lh, n, int(bool(include_h)), stream)
+                            N, C, L, Lh, n, int(bool(include_h)),
+                            n_groups or 1, stream)
     _raise_on(lib, rc, what)
     launches.forward += 1
     launches.forward_h += int(bool(include_h))
@@ -259,15 +280,19 @@ def forward(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
 
 
 def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
-             sxp, include_h=True):
+             sxp, include_h=True, n_groups=None):
     """K2 backward on the card: ``(du_re, du_im, dv, dh_re, dh_im)``, the
-    h terms None without ``include_h``. One launch of the slab kernel
-    (3xTF32 products on the tensor cores), plus ``sum_middle`` for du
-    where the half axis takes more than one slab and for dh with h
-    (:func:`backward_plan`). Every sum, dh's over epochs included, is taken
-    in a fixed order: no atomics."""
+    h terms None without ``include_h``, else (L, Lh) each, or (G, L, Lh)
+    with ``n_groups`` G (:func:`h_groups` of the forward's h). One launch
+    of the slab kernel (3xTF32 products on the tensor cores), plus
+    ``sum_middle`` for du where the half axis takes more than one slab
+    and for dh with h (:func:`backward_plan`). Every sum, dh's over epochs
+    included, is taken in a fixed order: no atomics."""
     what = "fused_render backward"
     N, C, L, Lh, n = _geometry(what, u_re, v, ayp)
+    if n_groups is not None and (n_groups < 1 or N % n_groups):
+        raise ValueError(f"{what}: n_groups={n_groups} does not divide the "
+                         f"{N} epochs")
     shapes = _shapes(N, C, L, Lh, n)
     named = dict(g=g, u_re=u_re, u_im=u_im, v=v, t_re=t_re, t_im=t_im,
                  r_hat=r_hat, pc=pc, ps=ps, ayp=ayp, byp=byp, cxp=cxp,
@@ -288,7 +313,8 @@ def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
     dev = dict(device=u_re.device, dtype=torch.float32)
     du = torch.empty(2, N, C, L, **dev)
     dv = torch.empty(N, C, Lh, **dev)
-    dh = torch.empty(2, L, Lh, **dev) if include_h else None
+    G = n_groups or 1
+    dh = torch.empty(2, G, L, Lh, **dev) if include_h else None
     du_part = torch.empty(2, N, n_slabs, C, L, **dev) if n_slabs > 1 \
         else None
     dh_part = torch.empty(2, N, L, Lh, **dev) if include_h else None
@@ -296,10 +322,14 @@ def backward(g, u_re, u_im, v, t_re, t_im, r_hat, pc, ps, ayp, byp, cxp,
         stream = torch.cuda.current_stream(u_re.device).cuda_stream
         rc = lib.k2_backward(
             *(_ptr(x) for x in (g, *ops, du_part, du, dv, dh_part, dh)),
-            N, C, L, Lh, n, int(bool(include_h)), n_slabs, stream)
+            N, C, L, Lh, n, int(bool(include_h)), n_slabs, G, stream)
     _raise_on(lib, rc, what)
     launches.backward += 1
     launches.backward_h += int(bool(include_h))
     du = du[..., :L0]
-    return du[0], du[1], dv, *((dh[0, :L0], dh[1, :L0]) if include_h
-                               else (None, None))
+    if not include_h:
+        return du[0], du[1], dv, None, None
+    dh = dh[:, :, :L0]
+    if n_groups is None:
+        dh = dh[:, 0]
+    return du[0], du[1], dv, dh[0], dh[1]

@@ -70,7 +70,7 @@ def _copy_tree(tree):
 
 
 def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
-            pixel_scale, angles_to_north, config, *, device,
+            pixel_scale, angles_to_north, config, *, device="cuda",
             noise_weights=None, irfft_backend="fft"):
     """Jointly model all ROI epochs; returns fluxes, errors and diagnostics.
 
@@ -85,7 +85,8 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         config: dict with the keys of :data:`ROI_CONFIG`;
             ``starting_background``, when not None, is an array of the
             fine-grid size in the data's units.
-        device: torch device of the fit.
+        device: torch device of the fit: the card unless the caller asks
+            for ``"cpu"``; there is no fallback.
         noise_weights: optional (J + 1, m, m) starlet weights W on the
             scaled data; computed from the noise when None.
         irfft_backend: the render of both fit stages and of the noise

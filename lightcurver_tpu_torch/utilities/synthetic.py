@@ -6,7 +6,9 @@ machine without jax cannot import the original, since importing any
 ``lightcurver_tpu`` module loads the JAX core. The same seed gives the
 same scene and the same stamps as the original (the tests check this).
 
-Also the frames of the JAX package's PSF bench (:func:`psf_bench_frames`)
+Also the star photometry's buckets (:func:`star_photometry_scene`, the
+stamps of the JAX package's ``bench.py::run_star_photometry_bench``), the
+frames of the JAX package's PSF bench (:func:`psf_bench_frames`)
 and a point of the batched PSF fit's pixel-phase loss on them
 (:func:`psf_pixel_phase_point`), which the kernel tests, ``chip_smoke.py``
 and ``tools/torch_psf_rounding.py`` hold card against CPU and float32
@@ -122,6 +124,106 @@ def make_star_stamps(n_stars=8, n_pix=64, s=2, seed=3, fwhm_x=3.0,
     data = clean + rng.normal(0, 1, clean.shape).astype(np.float32) * sigma
     return {"data": data, "sigma": sigma, "psf_true": psf, "a_true": a,
             "x0": x0, "y0": y0, "s": s}
+
+
+def star_photometry_scene(n_stars, n_epochs, n_pix, s, seed0=30,
+                          n_real=None):
+    """One bucket of reference stars for ``fit_stars_batched``.
+
+    Star i is :func:`make_star_stamps` with ``n_stars=n_epochs`` (one
+    stamp an epoch), seed ``seed0 + i`` and a Moffat FWHM of 2.6 px, its
+    true PSF repeated over the epochs, as the JAX package's
+    ``bench.py::run_star_photometry_bench`` makes them. ``n_real`` (S,)
+    keeps the first ``n_real[i]`` epochs of star i and pads the rest as
+    the star-photometry task pads a bucket of unequal epoch counts: data
+    0, noise 1e7, the first PSF repeated (``a_true`` NaN there).
+
+    Returns:
+        dict with data, sigma (S, N, n, n), psf (S, N, m, m), a_true
+        (S, N) and s.
+    """
+    data, sigma, psf, a_true = [], [], [], []
+    for i in range(n_stars):
+        st = make_star_stamps(n_stars=n_epochs, n_pix=n_pix, s=s,
+                              seed=seed0 + i, fwhm_x=2.6, fwhm_y=2.6)
+        data.append(st["data"])
+        sigma.append(st["sigma"])
+        psf.append(np.broadcast_to(st["psf_true"],
+                                   (n_epochs,) + st["psf_true"].shape))
+        a_true.append(st["a_true"])
+    data, sigma, psf = np.stack(data), np.stack(sigma), np.stack(psf)
+    a_true = np.stack(a_true)
+    if n_real is not None:
+        for i, k in enumerate(n_real):
+            data[i, k:] = 0.0
+            sigma[i, k:] = 1e7
+            psf[i, k:] = psf[i, 0]
+            a_true[i, k:] = np.nan
+    return {"data": data, "sigma": sigma, "psf": psf, "a_true": a_true,
+            "s": s}
+
+
+def star_k2_operands(n_stars, n_epochs, n_pix, device, seed):
+    """``(ops, g)``: K2's 14 operands as the star photometry gives them
+    (one source, s = 2, the S stars x N epochs of
+    :func:`star_photometry_scene` as S N render epochs, one background per
+    star: h_re, h_im (S, L, Lh)), at random positions and backgrounds, and
+    a random output cotangent (S N, n, n), on ``device``."""
+    import torch
+
+    from ..core.deconv.model import DeconvModel
+    from ..ops import dft
+
+    sc = star_photometry_scene(n_stars, n_epochs, n_pix, 2, seed0=seed)
+    m = 2 * n_pix
+    model = DeconvModel(
+        torch.as_tensor(sc["psf"].reshape(-1, m, m), device=device), 2,
+        n_pix, n_stars * n_epochs, 1, n_groups=n_stars,
+        dft_mats=dft.make_dft_mats(2 * m, m, pool=2, device=device))
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.as_tensor(sc["a_true"].reshape(-1, 1), device=device)
+    px, py = (0.3 * torch.randn(2, n_stars * n_epochs, 1,
+                                generator=gen)).to(device)
+    h = (0.01 * torch.randn(n_stars, m * m, generator=gen)).to(device)
+    ops = model.fused_render_operands(a, px, py, h, model.matmul_consts())
+    g = torch.randn(n_stars * n_epochs, n_pix, n_pix,
+                    generator=gen).to(device)
+    return ops, g
+
+
+def star_loss_point(n_stars, n_epochs, n_pix, irfft_backend,
+                    starlet_global_background, device, seed=9):
+    """``(loss, free)``: the star photometry's per-star loss (S,) on
+    :func:`star_photometry_scene` (s = 2, every epoch real), at a point
+    made from a seed (positions, fluxes and, with a free background, h
+    and the noise weights W), on ``device``."""
+    import torch
+
+    from ..core.deconv.batched import _prepare_stars, _star_losses
+    from ..core.starlet import n_starlet_scales
+
+    sc = star_photometry_scene(n_stars, n_epochs, n_pix, 2)
+    m = 2 * n_pix
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                               device=device)
+
+    W = rng.uniform(0.01, 0.05, (n_stars, n_starlet_scales(m) + 1, m, m)) \
+        if starlet_global_background else None
+    model, free, _, _, consts, _ = _prepare_stars(
+        on(sc["data"]), on(sc["sigma"]), on(sc["psf"]), 2, False,
+        starlet_global_background, irfft_backend, 0, W)
+    ka = free["kwargs_analytic"]
+    ka["a"] = ka["a"] * on(1 + 0.02 * rng.normal(size=ka["a"].shape))
+    for key, width in (("c_x", 0.3), ("c_y", 0.3), ("dx", 0.2),
+                       ("dy", 0.2)):
+        ka[key] = on(rng.uniform(-width, width, ka[key].shape))
+    if starlet_global_background:
+        free["kwargs_background"]["h"] = on(
+            1e-3 * rng.normal(size=(n_stars, m * m)))
+    return _star_losses(model, consts, n_stars), free
 
 
 def psf_bench_frames(n_frames=16, n_stars=8, n_pix=64, s=2):

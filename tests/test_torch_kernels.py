@@ -25,7 +25,8 @@ from lightcurver_tpu_torch.core.deconv.model import setup_model
 from lightcurver_tpu_torch.ops import (fused_render, fused_render_cuda,
                                        starlet_cuda, starlet_op)
 from lightcurver_tpu_torch.utilities.synthetic import (
-    make_roi_scene, psf_pixel_phase_point)
+    make_roi_scene, psf_pixel_phase_point, star_k2_operands,
+    star_loss_point)
 
 TOL = 1e-5
 K2_TOL = 1e-4
@@ -635,3 +636,78 @@ def test_hermitian_irfft2_on_the_card_matches_cpu(cuda, L):
     want = convolution.hermitian_irfft2(X, L)
     got = convolution.hermitian_irfft2(X.to(cuda), L).cpu()
     assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_stars,n_epochs,n_pix", [
+    (1, 6, 16), (3, 6, 16), (32, 100, 24)])
+def test_k2_grouped_h_matches_plain(cuda, n_stars, n_epochs, n_pix):
+    """K2 with a per-star background, G = S groups of N epochs: at the
+    test sizes and the full star shape (32 stars x 100 epochs, 24 px:
+    3200 render epochs, L 96), forward and backward against the plain
+    twins, dh (G, L, Lh)."""
+    ops, g = star_k2_operands(n_stars, n_epochs, n_pix, cuda,
+                              seed=n_stars)
+    assert ops[8].shape[0] == n_stars
+    bwd_ops = (*ops[:8], *ops[10:])
+    fused_render_cuda.launches.reset()
+    out = fused_render_cuda.forward(*ops)
+    grads = fused_render_cuda.backward(g, *bwd_ops, n_groups=n_stars)
+    torch.cuda.synchronize()
+    c = fused_render_cuda.launches
+    assert (c.forward_h, c.backward_h) == (1, 1)
+    ref = fused_render.render_plain(*ops)
+    assert (out - ref).abs().max().item() \
+        <= K2_FWD_TOL * ref.abs().max().item()
+    refs = fused_render.render_backward_plain(g, *bwd_ops,
+                                              n_groups=n_stars)
+    assert grads[3].shape == ops[8].shape
+    for got, want in zip(grads, refs):
+        assert (got - want).abs().max().item() \
+            <= K2_BWD_TOL * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k2_one_group_is_the_shared_plane_to_the_bit(cuda):
+    """h (1, L, Lh) renders and differentiates to the same bits as the
+    shared (L, Lh) plane (ROI-100's operands)."""
+    ops, g = _k2_case(cuda, 100, 64, seed=9)
+    grouped = (*ops[:8], ops[8][None], ops[9][None], *ops[10:])
+    bwd_ops = (*ops[:8], *ops[10:])
+    assert torch.equal(fused_render_cuda.forward(*grouped),
+                       fused_render_cuda.forward(*ops))
+    shared = fused_render_cuda.backward(g, *bwd_ops)
+    one = fused_render_cuda.backward(g, *bwd_ops, n_groups=1)
+    for got, want in zip(one[:3], shared[:3]):
+        assert torch.equal(got, want)
+    for got, want in zip(one[3:], shared[3:]):
+        assert got.shape == (1,) + want.shape
+        assert torch.equal(got[0], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fft", "matmul"])
+def test_star_loss_gradient_on_the_card_matches_cpu(cuda, backend):
+    """The star photometry's per-star loss with a free background and its
+    gradient, card against CPU: on the card K1 runs once each way and,
+    on the matmul render, K2 once each way with a per-star h."""
+    results = []
+    for device in ("cpu", cuda):
+        starlet_cuda.launches.reset()
+        fused_render_cuda.launches.reset()
+        loss, free = star_loss_point(3, 6, 16, backend, True, device)
+        leaves = [v.requires_grad_(True) for d in free.values()
+                  for v in d.values()]
+        value = loss(free)
+        value.sum().backward()
+        results.append((value.detach().cpu(),
+                        [x.grad.cpu() for x in leaves]))
+    assert (starlet_cuda.launches.forward,
+            starlet_cuda.launches.adjoint) == (1, 1)
+    k2 = fused_render_cuda.launches
+    assert (k2.forward_h, k2.backward_h) == ((1, 1) if backend == "matmul"
+                                             else (0, 0))
+    (want, want_grads), (got, got_grads) = results
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+    for g, w in zip(got_grads, want_grads):
+        assert (g - w).abs().max().item() <= K2_TOL * w.abs().max().item()
