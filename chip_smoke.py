@@ -83,14 +83,34 @@ prints no result:
 9c, 9d the same with ``starlet_global_background=True`` on each render,
    with exact launch counts: K1 2001 forward (2000 iterations and one
    noise batch of 32 x 200) and 2000 adjoint; K2 2000 each way on matmul
-   (the finalize renders without it), none on fft.
+   (the finalize renders without it), none on fft;
+10. ROI-100 on matmul again, through ``fit_roi`` with stage 2 checkpointed
+   every 500 iterations under the digest the pipeline task builds
+   (``roi_checkpoint_digest``), killed for real at the third checkpoint
+   write (a wrapper around ``core.optimize.save_checkpoint`` raises
+   ``SmokeKill``, the one exception caught), the file checked to hold
+   1000 iterations, then called again: it resumes there and replays the
+   lost segment. Held to phase 5b's uninterrupted fit (fluxes within
+   1 mmag, reduced chi2 within 1 %; whether the fluxes are bit-equal is
+   printed), with the launches of the iterations that ran (stage 2: K2
+   with the background and K1 1500 + 1000 each way, K1 forward also
+   twice phase 5b's noise-weight launches), the checkpoint writes' times,
+   and the file gone after success;
+10b. the same for the star fit of phase 9d (``fit_stars_batched`` with
+   ``checkpoint_path``, the starlet background on matmul), against 9d's
+   result;
+10c. a small scene (phase 4's, at 50 + 300 iterations) fitted twice
+   uninterrupted and once killed at its second checkpoint write (of
+   every 100) and resumed, on each render: are the card's fits
+   bit-reproducible at all, and is the resumed fit the uninterrupted one
+   to the bit?
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
-its launches over every run of the main path (phases 5, 5b, 7, 7b and
-9 to 9d), and, last, the device line. There is no CPU path: without a card the
-script fails.
+its launches over every run of the main path (phases 5, 5b, 7, 7b, 9 to
+9d, 10 and 10b), and, last, the device line. There is no CPU path:
+without a card the script fails.
 """
 
 import json
@@ -114,6 +134,10 @@ TF32_FLOPS = 495e12       # tensor cores, dense
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class SmokeKill(Exception):
+    """The simulated kill of a checkpointed fit (phases 10 to 10c)."""
 
 
 def check(ok, message):
@@ -609,16 +633,220 @@ def phase_star_full(np, torch, fit_stars_batched, sc, starlet_cuda, k2,
           f"{want} expected")
     check(k2.forward_h == runs[2] and k2.backward_h == runs[3],
           f"star fit ({flags}, {backend}): K2 ran without the background")
-    return runs
+    return runs, out, wall
 
 
-def fit_scene(fit_roi, config, scene, device, irfft_backend="fft"):
+def scene_args(scene, config):
+    """``fit_roi``'s positional arguments for a synthetic scene."""
     n = scene["data"].shape[-1]
     n_epochs = scene["data"].shape[0]
-    return fit_roi(scene["data"], scene["sigma_2"] ** 0.5, scene["psf"],
-                   scene["xs"] + (n - 1) / 2.0, scene["ys"] + (n - 1) / 2.0,
-                   scene["s"], scene["fwhm"], 1.0, [0.0] * n_epochs, config,
-                   device=device, irfft_backend=irfft_backend)
+    return (scene["data"], scene["sigma_2"] ** 0.5, scene["psf"],
+            scene["xs"] + (n - 1) / 2.0, scene["ys"] + (n - 1) / 2.0,
+            scene["s"], scene["fwhm"], 1.0, [0.0] * n_epochs, config)
+
+
+def fit_scene(fit_roi, config, scene, device, irfft_backend="fft", **kw):
+    return fit_roi(*scene_args(scene, config), device=device,
+                   irfft_backend=irfft_backend, **kw)
+
+
+class CheckpointWrites:
+    """Wraps ``core.optimize.save_checkpoint`` for one run: counts and
+    times the writes, and raises :class:`SmokeKill` instead of the
+    ``kill_at``-th one (never when None)."""
+
+    def __init__(self, optimize, kill_at=None):
+        self.optimize, self.kill_at = optimize, kill_at
+        self.done, self.seconds = [], []
+
+    def __enter__(self):
+        save = self.save = self.optimize.save_checkpoint
+
+        def wrapped(path, carry, n_iter, done, *args, **kwargs):
+            if self.kill_at is not None \
+                    and len(self.done) + 1 == self.kill_at:
+                raise SmokeKill(f"killed at checkpoint write {self.kill_at}")
+            t0 = time.perf_counter()
+            save(path, carry, n_iter, done, *args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            self.done.append(done)
+
+        self.optimize.save_checkpoint = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.optimize.save_checkpoint = self.save
+        return False
+
+
+def killed_and_resumed(np, torch, optimize, run, path, kill_at, counters):
+    """Run ``run()`` with its ``kill_at``-th checkpoint write raising
+    :class:`SmokeKill`, read the file's ``done``, then run it again to the
+    end. Returns (result, done at the kill, [killed, resumed] walls,
+    [killed, resumed] CheckpointWrites, [killed, resumed] launch counts as
+    ``counters()`` reads them after resetting them)."""
+    walls, writes, launches = [], [], []
+    for kill in (kill_at, None):
+        counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CheckpointWrites(optimize, kill) as w:
+            try:
+                out = run()
+            except SmokeKill:
+                out = None
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        writes.append(w)
+        launches.append(counters())
+        if kill is not None:
+            check(out is None, "the checkpointed fit was not killed")
+            with np.load(path, allow_pickle=False) as z:
+                done_at_kill = int(z["done"])
+        else:
+            check(out is not None, "the resumed fit was killed")
+    return out, done_at_kill, walls, writes, launches
+
+
+def same_bits(np, a, b, keys):
+    return all(np.array_equal(a[k], b[k]) for k in keys)
+
+
+def write_times(writes):
+    return ", ".join(f"{d}: {t * 1e3:.1f} ms"
+                     for w in writes for d, t in zip(w.done, w.seconds))
+
+
+def phase_roi_resumed(np, torch, fit_roi, roi_checkpoint_digest, optimize,
+                      config, scene, counters, reference, noise_launches,
+                      work, card):
+    """10: ROI-100 on matmul, stage 2 checkpointed every 500 iterations,
+    killed at the third write and resumed, against phase 5b's fit
+    (``reference``: (result, wall, stage-1 K2 launches)). Returns the
+    launches (K1 fwd, K1 adj, K2 fwd, K2 bwd) of both runs."""
+    want, wall_5b, stage1_5b = reference
+    path = work / "roi100_stage2.ckpt"
+    args = scene_args(scene, config)
+    digest = roi_checkpoint_digest(*args[:5], args[8], config)
+    out, done, walls, writes, runs = killed_and_resumed(
+        np, torch, optimize,
+        lambda: fit_roi(*args, device="cuda", irfft_backend="matmul",
+                        checkpoint_path=path, checkpoint_every=500,
+                        checkpoint_inputs_digest=digest),
+        path, 3, counters)
+    check(done == 1000, f"the killed fit's checkpoint holds {done} "
+          "iterations, 1000 expected")
+    check(not path.exists(), "the checkpoint is left after the fit")
+    dmag = np.abs(2.5 * np.log10(out["fluxes"] / want["fluxes"]))
+    dchi2 = np.abs(out["reduced_chi2"] / want["reduced_chi2"] - 1)
+    bits = same_bits(np, out, want, ("fluxes", "flux_errors",
+                                      "reduced_chi2"))
+    # K1 fwd, K1 adj, K2 fwd, K2 bwd, K2 fwd with h, K2 bwd with h
+    killed, resumed = runs
+    stage2 = tuple(k + r for k, r in zip(killed[4:], resumed[4:]))
+    k1 = (killed[0] + resumed[0], killed[1] + resumed[1])
+    stage1 = [(r[2] - r[4], r[3] - r[5]) for r in runs]
+    say(10, f"ROI-100 matmul, stage 2 checkpointed every 500 and killed at "
+        f"the third write: the file held {done} iterations; writes "
+        f"{write_times(writes)}; wall killed {walls[0]:.3f} s + resumed "
+        f"{walls[1]:.3f} s against {wall_5b:.3f} s uninterrupted (5b) "
+        f"(card {card})")
+    say(10, f"resumed vs 5b: max |dmag| {dmag.max() * 1e3:.4f} mmag, max "
+        f"|dchi2|/chi2 {dchi2.max():.2e}, fluxes, errors and chi2 "
+        f"{'bit-equal' if bits else 'not bit-equal'}; launches (killed + "
+        f"resumed) K2 with h {stage2[0]}/{stage2[1]} (1500 + 1000 expected), "
+        f"K1 {k1[0]}/{k1[1]}; stage 1 K2 forward/backward {stage1} (5b: "
+        f"{stage1_5b})")
+    check(dmag.max() <= 1e-3, "the resumed ROI-100 fit's fluxes differ from "
+          "5b's by > 1 mmag")
+    check(dchi2.max() <= 0.01, "the resumed ROI-100 fit's chi2 differs from "
+          "5b's by > 1 %")
+    check(stage2 == (2500, 2500), f"stage 2 K2 launches {stage2}, (2500, "
+          "2500) expected: 1500 iterations killed, 1000 resumed")
+    want_k1 = (2500 + 2 * noise_launches, 2500)
+    check(k1 == want_k1, f"K1 launches {k1}, {want_k1} expected")
+    check(all(min(s1) > 0 for s1 in stage1), "stage 1 did not run K2")
+    return (k1[0], k1[1], killed[2] + resumed[2], killed[3] + resumed[3])
+
+
+def phase_star_resumed(np, torch, fit_stars_batched, optimize, sc, counters,
+                       reference, work, card):
+    """10b: the star fit of 9d (starlet background, matmul) checkpointed
+    every 500 iterations, killed at the third write and resumed, against
+    9d's result (``reference``: (result, wall)). Returns the launches."""
+    want, wall_9d = reference
+    path = work / "star32.ckpt"
+    out, done, walls, writes, runs = killed_and_resumed(
+        np, torch, optimize,
+        lambda: fit_stars_batched(
+            sc["data"], sc["sigma"], sc["psf"], sc["s"], n_iter=2000,
+            starlet_global_background=True, irfft_backend="matmul",
+            checkpoint_path=path, checkpoint_every=500),
+        path, 3, counters)
+    check(done == 1000, f"the killed star fit's checkpoint holds {done} "
+          "iterations, 1000 expected")
+    with np.load(path, allow_pickle=False) as z:
+        # the core leaves the finished file; the pipeline tasks delete it
+        check(int(z["done"]) == 2000, "the star fit's last checkpoint is "
+              "not at 2000 iterations")
+    path.unlink()
+    dmag = np.abs(2.5 * np.log10(out["fluxes"] / want["fluxes"]))
+    dchi2 = np.abs(out["chi2"] / want["chi2"] - 1)
+    bits = same_bits(np, out, want, ("fluxes", "fluxes_uncertainties",
+                                      "chi2"))
+    total = tuple(k + r for k, r in zip(*runs))
+    say("10b", f"STAR-32 starlet matmul, checkpointed every 500 and killed "
+        f"at the third write: the file held {done} iterations; writes "
+        f"{write_times(writes)}; wall killed {walls[0]:.3f} s + resumed "
+        f"{walls[1]:.3f} s against {wall_9d:.3f} s uninterrupted (9d) "
+        f"(card {card})")
+    say("10b", f"resumed vs 9d: max |dmag| {dmag.max() * 1e3:.4f} mmag, max "
+        f"|dchi2|/chi2 {dchi2.max():.2e}, fluxes, errors and chi2 "
+        f"{'bit-equal' if bits else 'not bit-equal'}; launches (killed + "
+        f"resumed) K1 {total[0]}/{total[1]}, K2 {total[2]}/{total[3]} "
+        "(K1 2502/2500 and K2 2500/2500 expected)")
+    check(dmag.max() <= 1e-3, "the resumed star fit's fluxes differ from "
+          "9d's by > 1 mmag")
+    check(dchi2.max() <= 0.01, "the resumed star fit's chi2 differs from "
+          "9d's by > 1 %")
+    check(total[:4] == (2502, 2500, 2500, 2500),
+          f"star fit launches {total[:4]}, (2502, 2500, 2500, 2500) "
+          "expected")
+    return total[:4]
+
+
+def phase_bits(np, torch, fit_roi, optimize, config, scene, work):
+    """10c: is a fit on the card bit-reproducible, and is a killed and
+    resumed fit the uninterrupted one to the bit?"""
+    small = {**config, "roi_deconv_translations_iters": 50,
+             "roi_deconv_all_iters": 300}
+    keys = ("fluxes", "flux_errors", "reduced_chi2", "loss_history_stage1",
+            "loss_history_stage2")
+    path = work / "small_stage2.ckpt"
+    for backend in ("fft", "matmul"):
+        t0 = time.perf_counter()
+        first, second = (fit_scene(fit_roi, small, scene, "cuda", backend)
+                         for _ in range(2))
+        out, done, *_ = killed_and_resumed(
+            np, torch, optimize,
+            lambda: fit_scene(fit_roi, small, scene, "cuda", backend,
+                              checkpoint_path=path, checkpoint_every=100),
+            path, 2, lambda reset=False: None)
+        wall = time.perf_counter() - t0
+        check(done == 100 and not path.exists(),
+              "small scene: the checkpoint was not at 100 or is left")
+        twice = same_bits(np, first, second, keys)
+        resumed = same_bits(np, out, first, keys)
+        dmag2 = np.abs(2.5 * np.log10(second["fluxes"] / first["fluxes"]))
+        dmag = np.abs(2.5 * np.log10(out["fluxes"] / first["fluxes"]))
+        say("10c", f"small scene (16 epochs, 32 px, 50 + 300 iterations), "
+            f"{backend}, {wall:.1f} s: two uninterrupted fits "
+            f"{'bit-equal' if twice else 'NOT bit-equal'} (max |dmag| "
+            f"{dmag2.max() * 1e3:.4f} mmag); killed at 100 and resumed vs "
+            f"the first: {'bit-equal' if resumed else 'NOT bit-equal'} "
+            f"(max |dmag| {dmag.max() * 1e3:.4f} mmag)")
+        check(dmag.max() <= 1e-3, f"small scene ({backend}): the resumed "
+              "fit differs by > 1 mmag")
 
 
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
@@ -671,8 +899,9 @@ def main():
     from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
                                            fused_render, fused_render_cuda,
                                            starlet_cuda)
-    from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
-                                                               fit_roi)
+    from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.processes.roi_modelling import (
+        ROI_CONFIG, fit_roi, roi_checkpoint_digest)
     from lightcurver_tpu_torch.utilities.synthetic import (
         make_roi_scene, psf_bench_frames, psf_pixel_phase_point,
         star_k2_operands, star_photometry_scene)
@@ -778,6 +1007,7 @@ def main():
           f"{DMAG_MATMUL_MAX * 1e3} mmag")
     check(min(stage1) > 0, "stage 1 did not run through K2")
     k2_fwd, k2_bwd = k2.forward, k2.backward
+    noise_launches = n_fwd_mm - n_adj_mm
 
     for backend, phase in (("fft", 6), ("matmul", "6b")):
         phase_psf_small(np, build_psf_batched, psf_bench_frames,
@@ -789,20 +1019,42 @@ def main():
         phase_star_small(np, fit_stars_batched, star_photometry_scene,
                          starlet_cuda, k2, backend, phase)
     stars = star_photometry_scene(32, 100, 24, 2)
-    star_runs = [phase_star_full(np, torch, fit_stars_batched, stars,
+    star_fits = [phase_star_full(np, torch, fit_stars_batched, stars,
                                  starlet_cuda, k2, backend, starlet, phase,
                                  card)
                  for starlet, backend, phase in (
                      (False, "fft", 9), (False, "matmul", "9b"),
                      (True, "fft", "9c"), (True, "matmul", "9d"))]
+    star_runs = [runs for runs, _, _ in star_fits]
+
+    def counters(reset=False):
+        if reset:
+            starlet_cuda.launches.reset()
+            k2.reset()
+            return None
+        return (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint,
+                k2.forward, k2.backward, k2.forward_h, k2.backward_h)
+
+    work = HERE / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    resumed_runs = [
+        phase_roi_resumed(np, torch, fit_roi, roi_checkpoint_digest,
+                          optimize, ROI_CONFIG, scene, counters,
+                          (out_mm, wall_mm, stage1), noise_launches, work,
+                          card),
+        phase_star_resumed(np, torch, fit_stars_batched, optimize, stars,
+                           counters, star_fits[3][1:], work, card)]
+    phase_bits(np, torch, fit_roi, optimize, ROI_CONFIG, small, work)
     # launches over every run of the main path: ROI-100 and the
-    # full-width PSF fit on both renders, the full-width star fits
+    # full-width PSF fit on both renders, the full-width star fits, and
+    # the checkpointed ROI-100 and star fits with their replayed segments
+    main_runs = star_runs + resumed_runs
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
-        + sum(r[0] for r in star_runs)
+        + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \
-        + sum(r[1] for r in star_runs)
-    k2_fwd += sum(r[2] for r in star_runs)
-    k2_bwd += sum(r[3] for r in star_runs)
+        + sum(r[1] for r in main_runs)
+    k2_fwd += sum(r[2] for r in main_runs)
+    k2_bwd += sum(r[3] for r in main_runs)
 
     csrc = "lightcurver_tpu_torch/csrc/"
     kernels = {

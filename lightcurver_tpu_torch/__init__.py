@@ -1,15 +1,19 @@
-"""lightcurver_tpu_torch: the joint ROI deconvolution, the narrow-PSF fit
-and the star-batched photometry in PyTorch, for CUDA.
+"""lightcurver_tpu_torch: the joint ROI deconvolution and its pipeline
+task, the narrow-PSF fit and the star-batched photometry in PyTorch, for
+CUDA.
 
-A port of the numerical core of ``lightcurver_tpu`` (JAX) to PyTorch. The
-layout mirrors the JAX package (``core/``, ``core/deconv/``,
-``core/psf/``, ``ops/``, ``processes/``, ``utilities/``); ``csrc/`` holds
-the hand-written CUDA kernels. Each module names its JAX counterpart in its docstring, and the
-tests hold every module against that counterpart on the CPU.
+A port of ``lightcurver_tpu`` (JAX) to PyTorch. The layout mirrors the
+JAX package (``core/``, ``core/deconv/``, ``core/psf/``, ``ops/``,
+``processes/``, ``io/``, ``structure/``, ``utilities/``); ``csrc/`` holds
+the hand-written CUDA kernels. Each module names its JAX counterpart in
+its docstring, and the tests hold every module against that counterpart
+on the CPU. The host modules (``io/``, ``structure/``, most of
+``utilities/``) are copies of only the functions the port calls.
 
-The package imports torch, numpy, scipy and the standard library only:
-never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine that
-has neither.
+At import the package needs torch, numpy, scipy and the standard library
+only: never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine
+that has neither. The pipeline task imports h5py, pandas and PyYAML when
+it runs.
 
 Numerics: float32 throughout, with TF32 off for matmuls and cuDNN
 (``ops.enforce_fp32``, called by every entry point).
@@ -20,8 +24,11 @@ taken on an NVIDIA H100 and carries the card's name and power limit as
 
 Entry points, each on the card unless the caller passes ``device="cpu"``:
 
+- :func:`lightcurver_tpu_torch.processes.roi_modelling.do_modelling_of_roi`,
+  the ROI pipeline task (config, prepared-ROI HDF5 in; light curves,
+  astrometry and FITS products out);
 - :func:`lightcurver_tpu_torch.processes.roi_modelling.fit_roi`, the
-  joint ROI deconvolution;
+  joint ROI deconvolution on arrays, its stage 2 optionally checkpointed;
 - :func:`lightcurver_tpu_torch.core.psf.build.build_psf`, the narrow PSF
   of one frame;
 - :func:`lightcurver_tpu_torch.core.psf.batched.build_psf_batched`, the

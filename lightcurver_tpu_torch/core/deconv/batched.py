@@ -24,9 +24,11 @@ Monte-Carlo noise weights of all stars are one K1 launch at batch S x 200.
 With the shipped flags (h fixed at zero) no kernel of ours runs: the
 render is cuFFT, or the rank-1 modulated inverse on "matmul".
 
-Not ported here: the segmented, checkpointed loop (``checkpoint_path``;
-ROADMAP.md queue 1 item 3) and multi-GPU meshes (``mesh``; queue 1
-item 6).
+With ``checkpoint_path`` the AdaBelief loop runs in segments and writes
+the per-star carry to disk after each (JAX's ``_fit_stars_checkpointed``,
+through ``core/optimize.py``'s checkpoint writer and reader); a killed fit
+resumes from its last segment. Not ported here: multi-GPU meshes
+(``mesh``; ROADMAP.md queue 1 item 6).
 """
 
 import numpy as np
@@ -36,7 +38,7 @@ from .loss import _abs
 from .model import DeconvModel
 from ..fisher import _diag_fisher, linear_flux_solve
 from ..noise import epoch_nanmedian, mc_starlet_noise
-from ..optimize import run_adabelief_batched
+from ..optimize import arrays_digest, run_adabelief_batched
 from ..params import kwargs_to_numpy, merge_free
 from ..starlet import n_starlet_scales
 from ...ops import check_irfft_backend, dft, enforce_fp32
@@ -242,8 +244,13 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
             under a starlet l1 penalty weighted by Monte-Carlo noise
             weights (``NOISE_SAMPLES`` draws per star from a CPU
             ``torch.Generator`` seeded with ``seed``).
-        checkpoint_path, checkpoint_every: the segmented, checkpointed
-            loop; not ported (ROADMAP.md queue 1 item 3): a path raises.
+        checkpoint_path, checkpoint_every: when a path is given, the
+            AdaBelief loop runs in ``checkpoint_every``-iteration segments
+            with the per-star carry written to this path after each; a
+            call that finds the file resumes from it, and refuses
+            (``core.optimize.CheckpointMismatch``) a file recorded for
+            other data, PSFs, flags, budget or render. Not with
+            ``fetch="device"``.
         mesh: "auto" or None, the one device; any other mesh raises
             (multi-GPU, ROADMAP.md queue 1 item 6).
         fetch: "numpy" (default) returns host arrays; "device" the
@@ -266,17 +273,16 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     """
     enforce_fp32()
     check_irfft_backend(irfft_backend)
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "fit_stars_batched: checkpoint_path (the segmented, "
-            "checkpointed loop) is not ported yet: ROADMAP.md queue 1 "
-            "item 3")
     if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
         raise NotImplementedError(
             "fit_stars_batched: a mesh other than 'auto' or None "
             "(multi-GPU) is not ported yet: ROADMAP.md queue 1 item 6")
     if fetch not in ("numpy", "device"):
         raise ValueError(f"fetch={fetch!r}: 'numpy' or 'device' expected")
+    if checkpoint_path is not None and fetch == "device":
+        raise ValueError("fit_stars_batched: checkpoint_path cannot be "
+                         "combined with fetch='device' (every segment "
+                         "synchronises)")
     data = np.asarray(data, dtype=np.float32)
     noisemap = np.asarray(noisemap, dtype=np.float32)
     # joint sanitisation: a bad pixel gets data 0 and noise 1e7, so it
@@ -291,6 +297,18 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     def on(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
+    digest = None
+    if checkpoint_path is not None:
+        # the flags, the seed of the noise draws and the render change the
+        # objective under unchanged data
+        flags = (f"{bool(uniform_background_per_epoch)}:"
+                 f"{bool(starlet_global_background)}:{float(lr)}:"
+                 f"{int(seed)}:{irfft_backend}")
+        digest = arrays_digest(
+            data, noisemap, psf, np.frombuffer(flags.encode(), np.uint8),
+            np.zeros(0, np.float32) if noise_weights is None
+            else np.asarray(noise_weights, dtype=np.float32))
+
     n_stars = data.shape[0]
     model, free0, lower, upper, consts, scale = _prepare_stars(
         on(data), on(noisemap), on(psf), int(subsampling_factor),
@@ -299,7 +317,8 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     best, _, history = run_adabelief_batched(
         _star_losses(model, consts, n_stars), free0, lower, upper,
         int(n_iter), init_learning_rate=float(lr),
-        schedule_learning_rate=True)
+        schedule_learning_rate=True, checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, inputs_digest=digest)
     with torch.no_grad():
         out = _finalize_stars(model, best, history, consts, scale)
     if fetch == "device":

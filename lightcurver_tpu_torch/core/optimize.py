@@ -15,8 +15,20 @@ entries, each the loss BEFORE that iteration's update; the best parameters
 are those of the lowest recorded loss. The free tree is flattened into one
 float32 vector, so each optimizer step is a handful of kernels whatever
 the number of leaves; a Python loop takes the place of ``lax.scan``.
-Checkpointed segments and the extended path (stop at loss increase,
-parameter history) are not ported.
+The extended path (stop at loss increase, parameter history) is not
+ported.
+
+Mid-fit checkpoints (JAX's ``run_adabelief_checkpointed``): AdaBelief runs
+in segments of ``checkpoint_every`` iterations, and after each the carry
+(the flat ``theta``, ``mu``, ``nu``, ``best``, ``best_loss``), the number
+of iterations done and the history so far are written to one ``.npz``
+(leaves only, read back with ``allow_pickle=False``). A later call with
+the same path resumes after the last completed segment, from the global
+iteration index, so the learning-rate schedule spans the full run and a
+resumed fit takes the uninterrupted fit's steps. A file recorded for
+another budget, other inputs or another carry, or one that cannot be
+read, is refused with :class:`CheckpointMismatch`. The files are the
+port's own; they need not read the JAX package's.
 
 Frame-batched twins (the JAX package's ``adabelief_scan`` and
 ``lbfgsb_scan`` under ``jax.vmap``): :func:`run_adabelief_batched` and
@@ -29,6 +41,8 @@ iteration reads a value back to the host (no ``.item()``, no branch on
 data), so a CUDA graph can later capture it.
 """
 
+import hashlib
+import os
 import time
 
 import numpy as np
@@ -101,6 +115,15 @@ def _adabelief_update(theta, grad, mu, nu, lo, hi, it, n_iter,
     return torch.clamp(theta + step, lo, hi), mu, nu
 
 
+def _adabelief_carry(theta, n_frames=None):
+    """A fresh carry (theta, mu, nu, best, best_loss) from the flat start
+    ``theta``; ``best_loss`` is one value, or one per frame."""
+    shape = () if n_frames is None else (n_frames,)
+    return (theta, torch.zeros_like(theta), torch.zeros_like(theta),
+            theta.clone(),
+            torch.full(shape, float("inf"), device=theta.device))
+
+
 def run_adabelief(loss_fn, free0, lower, upper, n_iter,
                   init_learning_rate=1e-3, schedule_learning_rate=True):
     """Projected AdaBelief.
@@ -109,27 +132,54 @@ def run_adabelief(loss_fn, free0, lower, upper, n_iter,
         (best_free, final_free, loss_history) with loss_history a numpy
         array of n_iter float32 values.
     """
+    return run_adabelief_checkpointed(
+        loss_fn, free0, lower, upper, n_iter, None,
+        init_learning_rate=init_learning_rate,
+        schedule_learning_rate=schedule_learning_rate)
+
+
+def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
+                               checkpoint_path, init_learning_rate=1e-3,
+                               schedule_learning_rate=True,
+                               checkpoint_every=500, inputs_digest=None):
+    """Projected AdaBelief in resumable segments with on-disk checkpoints.
+
+    With ``checkpoint_path`` None it is one segment and writes nothing.
+    Otherwise a checkpoint is written after every ``checkpoint_every``
+    iterations, and a call that finds one resumes from it (see the module
+    docstring); ``inputs_digest`` (:func:`arrays_digest` of the fit's
+    inputs) is stored with it and must match on resume.
+
+    Returns:
+        (best_free, final_free, loss_history[n_iter]) as
+        :func:`run_adabelief`.
+    """
+    n_iter = int(n_iter)
     theta, spec = flatten(free0)
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    mu = torch.zeros_like(theta)
-    nu = torch.zeros_like(theta)
-    best = theta.clone()
-    best_loss = torch.tensor(float("inf"), device=theta.device)
     history = torch.empty(n_iter, device=theta.device)
-    for it in range(n_iter):
-        x = theta.requires_grad_(True)
-        value = loss_fn(unflatten(x, spec))
-        grad, = torch.autograd.grad(value, x)
-        theta = theta.detach()
-        value = value.detach()
-        history[it] = value
-        improved = value < best_loss
-        best_loss = torch.where(improved, value, best_loss)
-        best = torch.where(improved, theta, best)
-        theta, mu, nu = _adabelief_update(
-            theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
-            schedule_learning_rate)
+
+    def steps(carry, iterations):
+        theta, mu, nu, best, best_loss = carry
+        for it in iterations:
+            x = theta.requires_grad_(True)
+            value = loss_fn(unflatten(x, spec))
+            grad, = torch.autograd.grad(value, x)
+            theta = theta.detach()
+            value = value.detach()
+            history[it] = value
+            improved = value < best_loss
+            best_loss = torch.where(improved, value, best_loss)
+            best = torch.where(improved, theta, best)
+            theta, mu, nu = _adabelief_update(
+                theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
+                schedule_learning_rate)
+        return theta, mu, nu, best, best_loss
+
+    theta, _, _, best, _ = run_segments(
+        steps, _adabelief_carry(theta), history, n_iter, checkpoint_path,
+        checkpoint_every, inputs_digest)
     return (_free_from(best, spec, free0), _free_from(theta, spec, free0),
             history.cpu().numpy())
 
@@ -206,37 +256,45 @@ def _value_and_grad_batched(loss_fn, spec):
 
 def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
                           init_learning_rate=1e-3,
-                          schedule_learning_rate=True):
+                          schedule_learning_rate=True, checkpoint_path=None,
+                          checkpoint_every=500, inputs_digest=None):
     """Projected AdaBelief over F independent problems.
 
     ``free0``: tree of (F, ...) tensors; ``lower``/``upper``: trees of the
     per-frame shapes (broadcast over frames); ``loss_fn(tree) -> (F,)``.
     The learning-rate schedule is shared; each frame keeps its moments
-    and its best loss.
+    and its best loss. ``checkpoint_path``, ``checkpoint_every`` and
+    ``inputs_digest`` checkpoint the per-frame carry as
+    :func:`run_adabelief_checkpointed` does (JAX's batched star fit,
+    ``_fit_stars_checkpointed``); with no path nothing is written.
 
     Returns:
         (best_free, final_free, loss_history) with the history an (F,
         n_iter) tensor on the device of the parameters.
     """
+    n_iter = int(n_iter)
     theta, spec = flatten_batched(free0)
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
     value_and_grad = _value_and_grad_batched(loss_fn, spec)
-    mu = torch.zeros_like(theta)
-    nu = torch.zeros_like(theta)
-    best = theta.clone()
-    best_loss = torch.full(theta.shape[:1], float("inf"),
-                           device=theta.device)
     history = torch.empty(theta.shape[0], n_iter, device=theta.device)
-    for it in range(n_iter):
-        value, grad = value_and_grad(theta)
-        history[:, it] = value
-        improved = value < best_loss
-        best_loss = torch.where(improved, value, best_loss)
-        best = torch.where(improved[:, None], theta, best)
-        theta, mu, nu = _adabelief_update(
-            theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
-            schedule_learning_rate)
+
+    def steps(carry, iterations):
+        theta, mu, nu, best, best_loss = carry
+        for it in iterations:
+            value, grad = value_and_grad(theta)
+            history[:, it] = value
+            improved = value < best_loss
+            best_loss = torch.where(improved, value, best_loss)
+            best = torch.where(improved[:, None], theta, best)
+            theta, mu, nu = _adabelief_update(
+                theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
+                schedule_learning_rate)
+        return theta, mu, nu, best, best_loss
+
+    theta, _, _, best, _ = run_segments(
+        steps, _adabelief_carry(theta, theta.shape[0]), history, n_iter,
+        checkpoint_path, checkpoint_every, inputs_digest)
     return (unflatten_batched(best, spec), unflatten_batched(theta, spec),
             history)
 
@@ -456,6 +514,140 @@ def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter):
             history)
 
 
+def arrays_digest(*arrays):
+    """sha256 over the shapes, dtypes and bytes of host arrays: the
+    identity of a fit's inputs, stored with its checkpoints so that a
+    resume against changed data is refused."""
+    h = hashlib.sha256()
+    for arr in arrays:
+        arr = np.ascontiguousarray(arr)
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+class CheckpointMismatch(ValueError):
+    """A mid-fit checkpoint cannot be resumed against the current fit
+    (changed inputs, budget or carry structure, or an unreadable file).
+    The pipeline tasks catch this type
+    (``utilities/checkpoints.run_discarding_stale_checkpoint``) to discard
+    the file and start again."""
+
+
+def _check_ckpt_digest(path, stored, expected):
+    if expected is None:
+        return
+    stored = None if stored is None else str(stored)
+    if stored != expected:
+        raise CheckpointMismatch(
+            f"checkpoint {path} was recorded for different input data "
+            f"(digest {stored} != {expected}); the upstream products "
+            "changed since the interrupted fit: delete the checkpoint to "
+            "restart from scratch")
+
+
+def _load_ckpt_carry(z, fresh, path):
+    """The stored carry, checked against the fresh one leaf by leaf
+    (count both ways, shapes), as tensors on the fresh carry's device."""
+    n_leaves = len(fresh)
+    if any(f"leaf_{i}" not in z for i in range(n_leaves)):
+        raise CheckpointMismatch(
+            f"checkpoint {path} has fewer carry leaves than this problem "
+            "(parameter structure changed); refusing to resume: delete "
+            "the checkpoint to restart")
+    if f"leaf_{n_leaves}" in z:
+        raise CheckpointMismatch(
+            f"checkpoint {path} has more carry leaves than this problem "
+            "(parameter structure changed); refusing to resume: delete "
+            "the checkpoint to restart")
+    carry = []
+    for i, leaf in enumerate(fresh):
+        stored = z[f"leaf_{i}"]
+        if tuple(stored.shape) != tuple(leaf.shape):
+            raise CheckpointMismatch(
+                f"checkpoint {path} leaf {i} has shape "
+                f"{tuple(stored.shape)}, expected {tuple(leaf.shape)} "
+                "(free-parameter set or epoch padding changed); refusing "
+                "to resume: delete the checkpoint to restart")
+        carry.append(torch.from_numpy(np.array(stored, dtype=np.float32))
+                     .to(leaf.device))
+    return tuple(carry)
+
+
+def load_checkpoint(path, fresh, n_iter, inputs_digest):
+    """(carry, done, history) of the checkpoint at ``path``, checked
+    against the fresh carry, the budget and the inputs' digest; any
+    refusal, an unreadable file included, is :class:`CheckpointMismatch`."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            stored_n_iter = int(z["n_iter"])
+            if stored_n_iter != n_iter:
+                raise CheckpointMismatch(
+                    f"checkpoint {path} was recorded for n_iter="
+                    f"{stored_n_iter}, requested {n_iter}; refusing to "
+                    "resume (the lr schedule would not match): delete the "
+                    "checkpoint to restart")
+            _check_ckpt_digest(
+                path, z["inputs_digest"] if "inputs_digest" in z else None,
+                inputs_digest)
+            return (_load_ckpt_carry(z, fresh, path), int(z["done"]),
+                    np.array(z["history"]))
+    except CheckpointMismatch:
+        raise
+    except Exception as e:  # noqa: BLE001 -- a truncated or foreign file
+        raise CheckpointMismatch(
+            f"checkpoint {path} is unreadable ({type(e).__name__}: {e}); "
+            "delete it to restart") from e
+
+
+def save_checkpoint(path, carry, n_iter, done, history, inputs_digest=None):
+    """Write a mid-fit checkpoint: the carry's leaves, ``n_iter``,
+    ``done``, the history so far and the digest, as one ``.npz``
+    replaced atomically. The one writer of the single and the batched
+    fits."""
+    payload = {f"leaf_{i}": leaf.detach().cpu().numpy()
+               for i, leaf in enumerate(carry)}
+    payload["n_iter"] = np.int64(n_iter)
+    payload["done"] = np.int64(done)
+    payload["history"] = history.detach().cpu().numpy()
+    if inputs_digest is not None:
+        payload["inputs_digest"] = np.str_(inputs_digest)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, path)
+
+
+def run_segments(steps, carry, history, n_iter, checkpoint_path,
+                 checkpoint_every, inputs_digest):
+    """Drive ``steps(carry, iterations) -> carry`` over ``range(n_iter)``:
+    in one segment without a path; else resume from the checkpoint at
+    ``checkpoint_path`` if there is one (its history goes to
+    ``history[..., :done]``) and write one after every
+    ``checkpoint_every`` iterations."""
+    if checkpoint_path is None:
+        return steps(carry, range(n_iter))
+    every = int(checkpoint_every)
+    if every <= 0:
+        raise ValueError(
+            f"checkpoint_every must be positive, got {checkpoint_every} "
+            "(a non-positive segment length would loop forever)")
+    done = 0
+    if os.path.exists(checkpoint_path):
+        carry, done, stored = load_checkpoint(checkpoint_path, carry,
+                                              n_iter, inputs_digest)
+        history[..., :done] = torch.from_numpy(
+            np.array(stored[..., :done], dtype=np.float32))
+    while done < n_iter:
+        stop = min(done + every, n_iter)
+        carry = steps(carry, range(done, stop))
+        done = stop
+        save_checkpoint(checkpoint_path, carry, n_iter, done,
+                        history[..., :done], inputs_digest=inputs_digest)
+    return carry
+
+
 def _free_from(vec, spec, free0):
     # top-level keys with no free leaves (kwargs_sersic) are kept as {}
     out = unflatten(vec.detach().clone(), spec)
@@ -481,17 +673,26 @@ class Optimizer:
         self.loss_history = None
 
     def minimize(self, max_iterations, init_learning_rate=1e-3,
-                 schedule_learning_rate=True):
-        """Returns (best_kwargs, logL, {"loss_history": ...}, runtime_s)."""
+                 schedule_learning_rate=True, checkpoint_path=None,
+                 checkpoint_every=500, checkpoint_inputs_digest=None):
+        """Returns (best_kwargs, logL, {"loss_history": ...}, runtime_s).
+
+        ``checkpoint_path``, ``checkpoint_every`` and
+        ``checkpoint_inputs_digest`` run AdaBelief through
+        :func:`run_adabelief_checkpointed`; L-BFGS ignores them, as in
+        the JAX package.
+        """
         t0 = time.time()
         p = self.parameters
         free0 = p.best_fit_values(as_kwargs=False)
         n_iter = int(max_iterations)
         if self.method == "adabelief":
-            best, _, hist = run_adabelief(
+            best, _, hist = run_adabelief_checkpointed(
                 self.loss.loss_fn, free0, p.lower, p.upper, n_iter,
-                init_learning_rate=init_learning_rate,
-                schedule_learning_rate=schedule_learning_rate)
+                checkpoint_path, init_learning_rate=init_learning_rate,
+                schedule_learning_rate=schedule_learning_rate,
+                checkpoint_every=checkpoint_every,
+                inputs_digest=checkpoint_inputs_digest)
         else:
             best, _, hist = run_lbfgsb(self.loss.loss_fn, free0, p.lower,
                                        p.upper, n_iter)

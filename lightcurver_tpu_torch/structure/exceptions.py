@@ -1,0 +1,11 @@
+"""Pipeline exceptions: a copy of what the port calls from
+``lightcurver_tpu/structure/exceptions.py``."""
+
+
+class NoConfigFilePathInEnvironment(Exception):
+    """Raised when LIGHTCURVER_CONFIG is not set in the environment."""
+
+    def __init__(self):
+        super().__init__(
+            "Please define the environment variable LIGHTCURVER_CONFIG: "
+            "a path to your config.yaml file.")

@@ -350,8 +350,9 @@ def test_sanitisation_of_nan_data_and_psf(scene):
 
 def test_entry_point_defaults_and_deferred_options(scene):
     """The fit runs on the card unless asked (no CPU fallback: here it
-    raises), ``fetch="device"`` returns tensors, and the options that are
-    not ported raise and name their ROADMAP.md item."""
+    raises), ``fetch="device"`` returns tensors and refuses a checkpoint
+    path, and the option that is not ported raises and names its
+    ROADMAP.md item."""
     args = (scene["data"], scene["sigma"], scene["psf"], S)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
@@ -360,8 +361,8 @@ def test_entry_point_defaults_and_deferred_options(scene):
                                      fetch="device")
     assert isinstance(out["chi2"], torch.Tensor)
     assert out["loss_history"].shape == (S_STARS, 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tbatched.fit_stars_batched(*args, device="cpu",
+    with pytest.raises(ValueError, match="fetch='device'"):
+        tbatched.fit_stars_batched(*args, device="cpu", fetch="device",
                                    checkpoint_path="star.ckpt")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tbatched.fit_stars_batched(*args, device="cpu", mesh=object())
