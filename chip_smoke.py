@@ -104,13 +104,34 @@ prints no result:
    every 100) and resumed, on each render: are the card's fits
    bit-reproducible at all, and is the resumed fit the uninterrupted one
    to the bit?
+11. the device paths of the PSF and star pipeline tasks, driven through
+   the tasks' own functions on in-memory jobs (the card's machine has no
+   h5py, pandas or PyYAML for their database and HDF5 shells):
+   ``psf_modelling.run_pipelined_buckets`` over two buckets of 16 frames
+   x 8 stars, 64 px (cuFFT), prepared by ``mask_surrounding_stars``,
+   dispatched by ``_dispatch_fit_jobs`` and collected by
+   ``_collect_fit_results``: the first phase 7's frames at its 100 + 3000
+   iterations, the second with 6 stars in every other frame at 100 +
+   1000; and ``star_photometry._dispatch_star_jobs`` (``fetch="device"``)
+   pipelined over two buckets of 32 stars x 100 epochs, 24 px (starlet
+   background, matmul): the first phase 9d's stars at its 2000
+   iterations, the second with ragged epoch counts at 500. A bucket whose
+   padded arrays and budget are phase 7's (or 9d's) must give that
+   phase's bits, any other a direct ``build_psf_batched``
+   (``fit_stars_batched``) call's on the same arrays; PSFs and fluxes
+   finite, mean chi2 in phase 7's (9d's) range; launches exact (K1 one
+   each way per pixel-phase iteration of the PSF fits; K1 n + 1 / n and
+   K2 n / n per star bucket of n iterations); each bucket's wall and the
+   pipelined wall against the buckets' sum; then the second star bucket
+   checkpointed every 100 iterations through the task: the same bits,
+   and no file left.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
 its launches over every run of the main path (phases 5, 5b, 7, 7b, 9 to
-9d, 10 and 10b), and, last, the device line. There is no CPU path:
-without a card the script fails.
+9d, 10, 10b and 11's pipelined runs), and, last, the device line. There
+is no CPU path: without a card the script fails.
 """
 
 import json
@@ -396,7 +417,8 @@ def phase_psf_small(np, build_psf_batched, psf_bench_frames,
 def phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
                    starlet_cuda, backend, phase, card):
     """7 / 7b: the full-width frame-batched PSF fit (the frames of the JAX
-    package's PSF bench); returns the K1 launches of the fit."""
+    package's PSF bench); returns ((K1 forward, K1 adjoint) launches of
+    the fit, its result, its wall)."""
     pad = 16 if backend == "matmul" else None
     data, sigma = psf_bench_frames(16, 8, 64)
     torch.cuda.synchronize()
@@ -423,7 +445,7 @@ def phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
     check(PSF_CHI2_RANGE[0] <= chi2 <= PSF_CHI2_RANGE[1],
           f"PSF fit ({backend}): mean reduced chi2 {chi2} outside "
           f"{PSF_CHI2_RANGE}")
-    return n_fwd, n_adj
+    return (n_fwd, n_adj), out, wall
 
 
 def k2_operands(torch, setup_model, scene, seed):
@@ -849,6 +871,281 @@ def phase_bits(np, torch, fit_roi, optimize, config, scene, work):
               "fit differs by > 1 mmag")
 
 
+# phase 11's tasks: bucket 1 at the shipped budgets, bucket 2 (ragged) at
+# a smaller one to keep the script's time
+TASK_PSF_CONFIGS = [
+    {"subsampling_factor": 2, "psf_n_iter_analytic": 100,
+     "psf_n_iter_pixels": pixels, "field_distortion": False,
+     "psf_dft_pad": 16} for pixels in (3000, 1000)]
+TASK_STAR_CONFIGS = [
+    {"subsampling_factor": 2, "star_deconv_n_iter": n_iter,
+     "star_photometry_uniform_background_per_epoch": False,
+     "star_photometry_starlet_global_background": True,
+     "deconv_checkpoint_every": 0} for n_iter in (2000, 500)]
+TASK_STAR_CHECKPOINT_EVERY = 100
+
+
+def psf_task_jobs(np, mask_surrounding_stars, bucket, data, sigma, n_real,
+                  seeing):
+    """The PSF task's jobs for frames of star stamps, as
+    ``_prepare_frame_job`` makes them from the regions HDF5: the first
+    ``n_real[f]`` stars of frame f, their neighbours masked, the seeing
+    guess ``seeing[f]`` (None: unknown); each frame's id names its
+    bucket."""
+    jobs = []
+    for f, (k, guess) in enumerate(zip(n_real, seeing)):
+        d, n = data[f, :k].copy(), sigma[f, :k].copy()
+        jobs.append({
+            "frame": {"id": 100 * bucket + f, "seeing_pixels": guess},
+            "data": d, "noisemap": n, "stamp_coords": np.zeros((k, 2)),
+            "masks": np.array([mask_surrounding_stars(a, b)
+                               for a, b in zip(d, n)]),
+            "names": [chr(97 + j) for j in range(k)], "n_before": k})
+    return jobs
+
+
+def pipelined(torch, run_pipelined_buckets, buckets, prepare, dispatch,
+              collect):
+    """Drive ``run_pipelined_buckets``; returns ([(chunk, results)] in
+    store order, [each bucket's wall from its dispatch to its stored
+    results], the whole wall)."""
+    stored, starts, walls = [], [], []
+
+    def timed_dispatch(chunk):
+        starts.append(time.perf_counter())
+        return dispatch(chunk)
+
+    def store(chunk, out, t0):
+        stored.append((chunk, collect(out, chunk)))
+        walls.append(time.perf_counter() - starts[len(walls)])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_pipelined_buckets(buckets, prepare, timed_dispatch, store)
+    torch.cuda.synchronize()
+    return stored, walls, time.perf_counter() - t0
+
+
+def same_arrays(np, a, b):
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a)
+
+
+def psf_results_equal(np, results, ref, jobs):
+    """Are the task's per-frame results ``ref``'s (a ``build_psf_batched``
+    result on the host) to the bit?"""
+    for i, (res, job) in enumerate(zip(results, jobs)):
+        k = len(job["data"])
+        pairs = [(res["narrow_psf"], ref["narrow_psf"][i]),
+                 (res["full_psf"], ref["full_psf"][i]),
+                 (res["chi2"], ref["chi2"][i]),
+                 (res["chi2_per_star"], ref["chi2_per_star"][i, :k]),
+                 (res["residuals"], ref["residuals"][i, :k]),
+                 (res["adabelief_extra_fields"]["loss_history"],
+                  ref["loss_history_pixels"][i])]
+        for group in ("kwargs_moffat", "kwargs_distortion"):
+            pairs += [(value, ref[group][key][i]) for key, value
+                      in res["kwargs_psf"][group].items()]
+        if not all(np.array_equal(a, b) for a, b in pairs):
+            return False
+    return True
+
+
+def phase_psf_task(np, torch, psf_modelling, build_psf_batched,
+                   psf_bench_frames, starlet_cuda, reference, card):
+    """11, the PSF task's device path: ``run_pipelined_buckets`` over two
+    buckets of 16 frames x 8 stars, 64 px (the first phase 7's frames at
+    its budget, the second 16 more with 6 stars in every other frame, a
+    seeing guess and a smaller budget), prepared by
+    ``mask_surrounding_stars``, dispatched by ``_dispatch_fit_jobs`` on
+    cuFFT and collected by ``_collect_fit_results``. Each bucket is held
+    to the bit to phase 7's result when its padded arrays and budget are
+    phase 7's, else to a direct ``build_psf_batched`` call on them.
+    Returns the launches of the pipelined run."""
+    ref7, wall7 = reference
+    configs = TASK_PSF_CONFIGS
+    data, sigma = psf_bench_frames(32, 8, 64)
+    n_real = [[8] * 16, [8 if f % 2 == 0 else 6 for f in range(16)]]
+    seeing = [[None] * 16, [2.4 + 0.1 * f for f in range(16, 32)]]
+    buckets = [(b, data[16 * b:16 * (b + 1)], sigma[16 * b:16 * (b + 1)],
+                n_real[b], seeing[b]) for b in range(2)]
+    starlet_cuda.launches.reset()
+    stored, walls, wall = pipelined(
+        torch, psf_modelling.run_pipelined_buckets, buckets,
+        lambda b: psf_task_jobs(np, psf_modelling.mask_surrounding_stars,
+                                *b),
+        lambda chunk: psf_modelling._dispatch_fit_jobs(
+            configs[chunk[0]["frame"]["id"] // 100], chunk, device="cuda",
+            irfft_backend="fft"),
+        psf_modelling._collect_fit_results)
+    runs = (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint)
+    check(len(stored) == 2, f"the PSF task stored {len(stored)} buckets")
+    # phase 7's call: no masks, no coordinates, no seeing guess
+    as_phase7 = {"images": data[:16], "noisemaps": sigma[:16],
+                 "masks": np.ones(data[:16].shape, bool),
+                 "stamp_coordinates": np.zeros((16, 8, 2), np.float32),
+                 "guess_fwhm_pixels": np.full(16, 3.0, np.float32)}
+    serial = []
+    for b, (jobs, results) in enumerate(stored):
+        config = configs[b]
+        arrays = psf_modelling._pad_fit_jobs(jobs)
+        budget = (config["psf_n_iter_analytic"], config["psf_n_iter_pixels"])
+        if same_arrays(np, arrays, as_phase7) and budget == (100, 3000):
+            ref, against, t_ref = ref7, "phase 7's fit", wall7
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = build_psf_batched(
+                subsampling_factor=config["subsampling_factor"],
+                n_iter_analytic=budget[0], n_iter_adabelief=budget[1],
+                dft_pad=config["psf_dft_pad"], device="cuda",
+                irfft_backend="fft", **arrays)
+            t_ref = time.perf_counter() - t0
+            against = "a direct build_psf_batched call"
+        serial.append(t_ref)
+        chi2 = np.array([r["chi2"] for r in results])
+        bits = psf_results_equal(np, results, ref, jobs)
+        say(11, f"PSF task bucket {b + 1} ({len(jobs)} frames, stars "
+            f"{sorted(set(len(j['data']) for j in jobs))}, padded to "
+            f"{arrays['images'].shape[1]}; masked pixels "
+            f"{int((~arrays['masks']).sum())}; {budget[0]} + {budget[1]} "
+            f"iterations): {walls[b]:.3f} s from dispatch to stored "
+            f"results; held to {against} ({t_ref:.3f} s alone): "
+            f"{'bit-equal' if bits else 'NOT bit-equal'}; mean reduced "
+            f"chi2 {chi2.mean():.4f}")
+        check(bits, f"PSF task bucket {b + 1}: not bit-equal to {against}")
+        check(all(np.all(np.isfinite(r[k])) for r in results
+                  for k in ("narrow_psf", "full_psf", "chi2")),
+              f"PSF task bucket {b + 1}: non-finite PSFs or chi2")
+        check(PSF_CHI2_RANGE[0] <= chi2.mean() <= PSF_CHI2_RANGE[1],
+              f"PSF task bucket {b + 1}: mean reduced chi2 {chi2.mean()} "
+              f"outside {PSF_CHI2_RANGE}")
+    want = sum(c["psf_n_iter_pixels"] for c in configs)
+    say(11, f"PSF task, 2 buckets of 16 frames (fft): pipelined "
+        f"{wall:.3f} s against {sum(serial):.3f} s for the buckets one by "
+        f"one ({wall / sum(serial):.3f}) (card {card}); K1 launches forward "
+        f"{runs[0]}, adjoint {runs[1]} ({want} each expected)")
+    check(runs == (want, want), f"PSF task: K1 launches {runs}, one each "
+          "way per pixel-phase iteration expected")
+    return runs + (0, 0)
+
+
+def star_task_jobs(sc, n_real, bucket):
+    """The star task's jobs: star i's first ``n_real[i]`` epochs; each
+    star names its bucket."""
+    return [{"star": {"gaia_id": f"s{bucket}_{i}", "bucket": bucket},
+             "data": sc["data"][i, :k], "noisemap": sc["sigma"][i, :k],
+             "psf": sc["psf"][i, :k]} for i, k in enumerate(n_real)]
+
+
+def star_results_equal(np, results, ref, jobs):
+    """Are the task's per-star results ``ref``'s (a ``fit_stars_batched``
+    result on the host) to the bit?"""
+    for i, (res, job) in enumerate(zip(results, jobs)):
+        k = len(job["data"])
+        pairs = [(res[key], ref[key][i, :k]) for key in
+                 ("fluxes", "fluxes_uncertainties", "chi2_per_frame",
+                  "residuals")]
+        pairs += [(res["loss_curve"], ref["loss_history"][i]),
+                  (res["starlet_background"], ref["starlet_background"][i])]
+        if not all(np.array_equal(a, b) for a, b in pairs):
+            return False
+    return True
+
+
+def phase_star_task(np, torch, star_photometry, run_pipelined_buckets,
+                    fit_stars_batched, star_photometry_scene, optimize, sc,
+                    counters, reference, work, card):
+    """11, the star task's device path: ``_dispatch_star_jobs``
+    (``fetch="device"``) pipelined over two buckets of 32 stars x 100
+    epochs, 24 px, with the starlet background on matmul (K1 and K2): the
+    first phase 9d's stars at its budget, the second 32 more with 100, 90,
+    80 and 70 real epochs in turn, at a smaller budget. Each bucket is
+    held to the bit to phase 9d's result when its padded arrays and budget
+    are 9d's, else to a direct ``fit_stars_batched`` call on them; then
+    the second bucket once more through the task with
+    ``deconv_checkpoint_every``, to the same bits and with its checkpoint
+    deleted. Returns the launches of the pipelined run."""
+    ref9d, wall9d = reference
+    configs = [{**c, "checkpoints_dir": work / "star_task"}
+               for c in TASK_STAR_CONFIGS]
+    other = star_photometry_scene(32, 100, 24, 2, seed0=70)
+    buckets = [star_task_jobs(sc, [100] * 32, 0),
+               star_task_jobs(other, [100 - 10 * (i % 4) for i in
+                                      range(32)], 1)]
+    counters(reset=True)
+    stored, walls, wall = pipelined(
+        torch, run_pipelined_buckets, buckets, lambda b: b,
+        lambda b: star_photometry._dispatch_star_jobs(
+            configs[b[0]["star"]["bucket"]], b, fetch="device",
+            device="cuda", irfft_backend="matmul"),
+        star_photometry._collect_star_results)
+    runs = counters()
+    check(len(stored) == 2, f"the star task stored {len(stored)} buckets")
+    serial, refs = [], []
+    for b, (jobs, results) in enumerate(stored):
+        n_iter = configs[b]["star_deconv_n_iter"]
+        arrays = star_photometry._pad_star_jobs(jobs)
+        if n_iter == 2000 and all(
+                np.array_equal(a, sc[k]) and a.dtype == sc[k].dtype
+                for a, k in zip(arrays, ("data", "sigma", "psf"))):
+            ref, against, t_ref = ref9d, "phase 9d's fit", wall9d
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = fit_stars_batched(
+                *arrays, configs[b]["subsampling_factor"], n_iter=n_iter,
+                starlet_global_background=True, irfft_backend="matmul")
+            t_ref = time.perf_counter() - t0
+            against = "a direct fit_stars_batched call"
+        serial.append(t_ref)
+        refs.append(ref)
+        chi2 = np.array([r["chi2"] for r in results])
+        bits = star_results_equal(np, results, ref, jobs)
+        say(11, f"star task bucket {b + 1} (32 stars, epochs "
+            f"{sorted(set(len(j['data']) for j in jobs))} padded to "
+            f"{arrays[0].shape[1]}; {n_iter} iterations): {walls[b]:.3f} s "
+            f"from dispatch to stored results; held to {against} "
+            f"({t_ref:.3f} s alone): "
+            f"{'bit-equal' if bits else 'NOT bit-equal'}; mean reduced "
+            f"chi2 {chi2.mean():.4f}")
+        check(bits, f"star task bucket {b + 1}: not bit-equal to {against}")
+        check(all(np.all(np.isfinite(r[k])) for r in results
+                  for k in ("fluxes", "fluxes_uncertainties")),
+              f"star task bucket {b + 1}: non-finite fluxes or errors")
+        check(0.9 <= chi2.mean() <= 1.1, f"star task bucket {b + 1}: mean "
+              f"reduced chi2 {chi2.mean()} outside [0.9, 1.1]")
+    iters = [c["star_deconv_n_iter"] for c in configs]
+    want = (sum(iters) + 2, sum(iters), sum(iters), sum(iters))
+    say(11, f"star task, 2 buckets of 32 stars (starlet background, "
+        f"matmul): pipelined {wall:.3f} s against {sum(serial):.3f} s for "
+        f"the buckets one by one ({wall / sum(serial):.3f}) (card {card}); "
+        f"K1 launches {runs[0]}/{runs[1]}, K2 {runs[2]}/{runs[3]} "
+        f"({want[0]}/{want[1]} and {want[2]}/{want[3]} expected)")
+    check(runs[:4] == want, f"star task: launches {runs[:4]}, K1 n + 1 / n "
+          "(one noise batch) and K2 n / n per bucket of n iterations "
+          "expected")
+    check(runs[4:] == runs[2:4], "star task: K2 ran without the background")
+
+    # the second bucket checkpointed: the task deletes the file
+    every = TASK_STAR_CHECKPOINT_EVERY
+    ckpt = {**configs[1], "deconv_checkpoint_every": every}
+    jobs = stored[1][0]
+    with CheckpointWrites(optimize) as w:
+        results = star_photometry._fit_star_jobs_batched(
+            ckpt, jobs, device="cuda", irfft_backend="matmul")
+    left = sorted(p.name for p in ckpt["checkpoints_dir"].glob("*"))
+    bits = star_results_equal(np, results, refs[1], jobs)
+    say(11, f"star task bucket 2 checkpointed every {every}: writes "
+        f"{write_times([w])}; {'bit-equal' if bits else 'NOT bit-equal'} "
+        f"to the direct call; files left {left}")
+    check(w.done == list(range(every, iters[1] + 1, every)),
+          f"star task: checkpoint writes at {w.done}")
+    check(bits, "star task: the checkpointed bucket is not bit-equal")
+    check(not left, f"star task: the checkpoint was left: {left}")
+    return runs[:4]
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -900,6 +1197,8 @@ def main():
                                            fused_render, fused_render_cuda,
                                            starlet_cuda)
     from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.processes import (psf_modelling,
+                                                 star_photometry)
     from lightcurver_tpu_torch.processes.roi_modelling import (
         ROI_CONFIG, fit_roi, roi_checkpoint_digest)
     from lightcurver_tpu_torch.utilities.synthetic import (
@@ -1012,9 +1311,11 @@ def main():
     for backend, phase in (("fft", 6), ("matmul", "6b")):
         phase_psf_small(np, build_psf_batched, psf_bench_frames,
                         psf_pixel_phase_point, starlet_cuda, backend, phase)
-    k1_psf = [phase_psf_full(np, torch, build_psf_batched, psf_bench_frames,
-                             starlet_cuda, backend, phase, card)
-              for backend, phase in (("fft", 7), ("matmul", "7b"))]
+    psf_fits = [phase_psf_full(np, torch, build_psf_batched,
+                               psf_bench_frames, starlet_cuda, backend,
+                               phase, card)
+                for backend, phase in (("fft", 7), ("matmul", "7b"))]
+    k1_psf = [runs for runs, _, _ in psf_fits]
     for backend, phase in (("fft", 8), ("matmul", "8b")):
         phase_star_small(np, fit_stars_batched, star_photometry_scene,
                          starlet_cuda, k2, backend, phase)
@@ -1045,10 +1346,19 @@ def main():
         phase_star_resumed(np, torch, fit_stars_batched, optimize, stars,
                            counters, star_fits[3][1:], work, card)]
     phase_bits(np, torch, fit_roi, optimize, ROI_CONFIG, small, work)
+    task_runs = [
+        phase_psf_task(np, torch, psf_modelling, build_psf_batched,
+                       psf_bench_frames, starlet_cuda, psf_fits[0][1:],
+                       card),
+        phase_star_task(np, torch, star_photometry,
+                        psf_modelling.run_pipelined_buckets,
+                        fit_stars_batched, star_photometry_scene, optimize,
+                        stars, counters, star_fits[3][1:], work, card)]
     # launches over every run of the main path: ROI-100 and the
-    # full-width PSF fit on both renders, the full-width star fits, and
-    # the checkpointed ROI-100 and star fits with their replayed segments
-    main_runs = star_runs + resumed_runs
+    # full-width PSF fit on both renders, the full-width star fits, the
+    # checkpointed ROI-100 and star fits with their replayed segments,
+    # and the PSF and star tasks' pipelined buckets
+    main_runs = star_runs + resumed_runs + task_runs
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \
