@@ -125,6 +125,16 @@ prints no result:
    pipelined wall against the buckets' sum; then the second star bucket
    checkpointed every 100 iterations through the task: the same bits,
    and no file left.
+12. the front of the pipeline's host bodies (numpy and scipy; the card's
+   machine has no pandas or h5py for their task shells) on one seeded
+   2048 x 2048 frame of ~300 stars of FWHM 3 px with ~200 cosmic-ray
+   hits: ``subtract_background`` at the example config's 3 boxes,
+   ``_segment`` and ``_moments`` at its threshold 2 and area 20,
+   ``find_transform`` against a rotated, shifted copy of the sources, and
+   ``extract_stamp`` and ``mask_cutout`` of 32 px stamps for 200 stars;
+   >= 95 % of the stars found within 0.5 px, the transform within
+   0.05 px, >= 90 % of the hit pixels masked; each body's wall beside the
+   card line.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
@@ -1146,6 +1156,144 @@ def phase_star_task(np, torch, star_photometry, run_pipelined_buckets,
     return runs[:4]
 
 
+# phase 12: the front's host bodies at one real frame (a 2048 px detector,
+# ~300 stars, the example config's box count, threshold, area, stamp and
+# cosmics settings)
+FRONT = dict(size=2048, grid=(18, 17), fwhm=3.0, exptime=30.0, sky=10.0,
+             hits=200, stamp=32, n_boxes=3, threshold=2.0, min_area=20,
+             cosmics={"sigclip": 4.5, "sigfrac": 0.3, "objlim": 5.0})
+FRONT_STAR_PX, FRONT_TRANSFORM_PX = 0.5, 0.05
+FRONT_RECOVERED, FRONT_HITS_MASKED = 0.95, 0.90
+
+
+def front_frame(np, seed=12, size=FRONT["size"], grid=FRONT["grid"],
+                n_hits=FRONT["hits"]):
+    """A seeded float32 frame in e-/s: a sky gradient, Gaussian stars of
+    FWHM 3 px on a jittered grid (fluxes 500-5000 e-/s, 85-850 sky
+    sigma at the peak), the pixel noise of its electrons, and one cosmic-ray hit
+    of 1 or 2 pixels (50-200 sigma) 9-13 px from each of the first
+    ``n_hits`` stars: inside its stamp, clear of its light. Returns
+    (frame, stars' (x, y), hits' (y, x) pixels, each hit's star)."""
+    rng = np.random.default_rng(seed)
+    exptime, sky = FRONT["exptime"], FRONT["sky"]
+    yy, xx = np.mgrid[0:size, 0:size]
+    frame = sky + 2e-3 * xx + 1e-3 * yy
+    gy, gx = grid
+    step_x, step_y = size / gx, size / gy
+    centres = np.array([((i + 0.5) * step_x, (j + 0.5) * step_y)
+                        for j in range(gy) for i in range(gx)])
+    stars = centres + rng.uniform(-0.2, 0.2, centres.shape) * (step_x, step_y)
+    sigma = FRONT["fwhm"] / 2.3548
+    for (x, y), flux in zip(stars, rng.uniform(500.0, 5000.0, len(stars))):
+        x0, y0 = int(x) - 12, int(y) - 12
+        py, px = np.mgrid[y0:y0 + 25, x0:x0 + 25]
+        frame[y0:y0 + 25, x0:x0 + 25] += flux / (2 * np.pi * sigma**2) * \
+            np.exp(-0.5 * ((px - x) ** 2 + (py - y) ** 2) / sigma**2)
+    frame = rng.normal(frame * exptime, np.sqrt(frame * exptime)) / exptime
+    sky_sigma = np.sqrt(sky * exptime) / exptime
+    hits = []
+    for k in range(n_hits):
+        angle, radius = rng.uniform(0, 2 * np.pi), rng.uniform(9.0, 13.0)
+        hy = int(round(stars[k, 1] + radius * np.sin(angle)))
+        hx = int(round(stars[k, 0] + radius * np.cos(angle)))
+        for dy in range(rng.integers(1, 3)):
+            frame[hy + dy, hx] += rng.uniform(50.0, 200.0) * sky_sigma
+            hits.append((hy + dy, hx, k))
+    hits = np.array(hits)
+    return frame.astype(np.float32), stars, hits[:, :2], hits[:, 2]
+
+
+def phase_front(np, card, size=FRONT["size"], grid=FRONT["grid"],
+                n_hits=FRONT["hits"]):
+    """12, the front's host bodies on one real frame: the background
+    subtraction at the example config's box count, the segmentation and
+    moments at its threshold and area, the pattern matcher against a
+    rotated, shifted copy of the sources, and the stamps and their masks
+    of the first ``n_hits`` stars. Checks: >= 95 % of the stars found
+    within 0.5 px, the transform within 0.05 px over the frame, >= 90 %
+    of the cosmic-ray pixels masked. Prints each body's wall beside the
+    card line (host work: numpy and scipy, no kernel of ours)."""
+    from lightcurver_tpu_torch.io.fits import Header
+    from lightcurver_tpu_torch.io.wcs import TanWCS
+    from lightcurver_tpu_torch.processes.background_estimation import \
+        subtract_background
+    from lightcurver_tpu_torch.processes.cutout_making import (
+        extract_stamp, mask_cutout)
+    from lightcurver_tpu_torch.processes.star_extraction import (
+        _moments, _segment)
+    from lightcurver_tpu_torch.utilities.pattern_matching import (
+        SimilarityTransform, find_transform)
+
+    frame, stars, hits, hit_star = front_frame(np, size=size, grid=grid,
+                                               n_hits=n_hits)
+    walls = {}
+    t0 = time.perf_counter()
+    data_sub, bkg = subtract_background(frame, n_boxes=FRONT["n_boxes"])
+    walls["subtract_background"] = time.perf_counter() - t0
+
+    # the import's detection variance, (e-/s)^2
+    variance = bkg.globalrms**2 + np.abs(data_sub) / FRONT["exptime"]
+    image = np.asarray(data_sub, dtype=np.float32)
+    t0 = time.perf_counter()
+    labels, seg = _segment(image, variance, FRONT["threshold"],
+                           FRONT["min_area"])
+    rows = _moments(image, seg, labels)
+    walls["segment_moments"] = time.perf_counter() - t0
+    found = np.array([(r["x"], r["y"], r["flux"]) for r in rows])
+    found = found[np.argsort(-found[:, 2])]
+    dist = np.hypot(stars[:, None, 0] - found[None, :, 0],
+                    stars[:, None, 1] - found[None, :, 1]).min(axis=1)
+    recovered = float(np.mean(dist <= FRONT_STAR_PX))
+
+    angle = np.radians(0.7)
+    truth = SimilarityTransform(
+        [[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]],
+        [13.7, -8.2])
+    rng = np.random.default_rng(1)
+    copy = truth(found[:, :2]) + rng.normal(0.0, 0.01, (len(found), 2))
+    t0 = time.perf_counter()
+    transform, (inliers, _) = find_transform(found[:, :2], copy)
+    walls["find_transform"] = time.perf_counter() - t0
+    probe = np.array([(x, y) for x in (0, size - 1) for y in (0, size - 1)]
+                     + [(size / 2, size / 2)], dtype=float)
+    transform_px = float(np.hypot(*(transform(probe) - truth(probe)).T).max())
+
+    scale = 0.2 / 3600.0
+    wcs = TanWCS(42.2031, 19.22528, (size + 1) / 2, (size + 1) / 2,
+                 [[-scale, 0.0], [0.0, scale]])
+    header = Header()
+    header.update(wcs.to_header_cards())
+    ra, dec = wcs.pixel_to_world(stars[:n_hits, 0], stars[:n_hits, 1])
+    masked = np.zeros(len(hits), bool)
+    half = (FRONT["stamp"] - 1) / 2.0
+    t0 = time.perf_counter()
+    for k in range(n_hits):
+        stamp, noise, _, centre = extract_stamp(
+            data_sub, header, FRONT["exptime"], (float(ra[k]), float(dec[k])),
+            FRONT["stamp"], bkg.globalrms)
+        mask = mask_cutout(stamp, noise, True, True, FRONT["cosmics"])
+        ix, iy = (int(round(c - half)) for c in centre)
+        for i in np.flatnonzero(hit_star == k):
+            masked[i] = mask[hits[i, 0] - iy, hits[i, 1] - ix]
+    walls["stamps_and_masks"] = time.perf_counter() - t0
+    hits_masked = float(masked.mean())
+
+    say(12, f"front host bodies, {size} x {size} frame, {len(stars)} stars, "
+        f"{len(hits)} cosmic-ray pixels (card {card}): "
+        + ", ".join(f"{name} {wall:.3f} s" for name, wall in walls.items()))
+    say(12, f"{len(rows)} sources, {recovered:.1%} of the stars within "
+        f"{FRONT_STAR_PX} px; transform off by {transform_px:.2e} px over "
+        f"the frame ({len(inliers)} inliers); {hits_masked:.1%} of the hit "
+        f"pixels masked in {n_hits} stamps of {FRONT['stamp']} px")
+    check(recovered >= FRONT_RECOVERED, f"front: only {recovered:.1%} of "
+          f"the stars found within {FRONT_STAR_PX} px")
+    check(transform_px <= FRONT_TRANSFORM_PX, f"front: the transform is off "
+          f"by {transform_px:.3f} px")
+    check(hits_masked >= FRONT_HITS_MASKED, f"front: only {hits_masked:.1%} "
+          "of the cosmic-ray pixels masked")
+    return walls
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -1354,6 +1502,7 @@ def main():
                         psf_modelling.run_pipelined_buckets,
                         fit_stars_batched, star_photometry_scene, optimize,
                         stars, counters, star_fits[3][1:], work, card)]
+    phase_front(np, card)
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,

@@ -1,19 +1,20 @@
 """lightcurver_tpu_torch: the joint ROI deconvolution, the narrow-PSF fit
 and the star-batched photometry in PyTorch, for CUDA, with the pipeline
-tasks from PSF modelling to the ROI model.
+tasks from the database schema and the frame import to the ROI model.
 
 A port of ``lightcurver_tpu`` (JAX) to PyTorch. The layout mirrors the
 JAX package (``core/``, ``core/deconv/``, ``core/psf/``, ``ops/``,
-``processes/``, ``io/``, ``structure/``, ``utilities/``); ``csrc/`` holds
-the hand-written CUDA kernels. Each module names its JAX counterpart in
-its docstring, and the tests hold every module against that counterpart
-on the CPU. The host modules (``io/``, ``structure/``, most of
-``utilities/``) are copies of only the functions the port calls.
+``pipeline/``, ``processes/``, ``io/``, ``structure/``, ``utilities/``);
+``csrc/`` holds the hand-written CUDA kernels. Each module names its JAX
+counterpart in its docstring, and the tests hold every module against
+that counterpart on the CPU. The host modules (``io/``, ``structure/``, ``pipeline/``,
+most of ``utilities/``) are copies of the functions the port calls; the
+front's numerics are the numpy/scipy twins of the JAX package's host C++.
 
 At import the package needs torch, numpy, scipy and the standard library
 only: never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine
-that has neither. The pipeline tasks import h5py, pandas and PyYAML when
-they run.
+that has neither. The pipeline tasks import h5py, pandas and PyYAML (and
+the nova.astrometry.net client ``requests``) when they run.
 
 Numerics: float32 throughout, with TF32 off for matmuls and cuDNN
 (``ops.enforce_fp32``, called by every entry point).
@@ -24,8 +25,19 @@ taken on an NVIDIA H100 and carries the card's name and power limit as
 
 Entry points, each on the card unless the caller passes ``device="cpu"``:
 
-- the pipeline tasks, named as the JAX package's, from a workdir stamped
-  up to ``stamp_extraction``:
+- the front's pipeline tasks, named as the JAX package's, host only, from
+  raw FITS frames to the stamped ``regions.h5``:
+  :func:`lightcurver_tpu_torch.structure.database.initialize_database`,
+  :func:`lightcurver_tpu_torch.pipeline.task_wrappers.read_convert_skysub_character_catalog`,
+  the plate solving (``task_wrappers.plate_solve_all_frames``, or
+  ``processes.alternate_plate_solving_with_gaia.alternate_plate_solve_gaia``
+  or ``processes.alternate_plate_solving_adapt_existing_wcs.alternate_plate_solve_adapt_ref``,
+  then ``pipeline.state_checkers.check_plate_solving``),
+  ``task_wrappers.calc_common_and_total_footprint_and_save``,
+  :func:`lightcurver_tpu_torch.processes.star_querying.query_gaia_stars`
+  and :func:`lightcurver_tpu_torch.processes.cutout_making.extract_all_stamps`;
+- the calibration chain's pipeline tasks, named as the JAX package's,
+  from a stamped workdir:
   :func:`lightcurver_tpu_torch.processes.psf_modelling.model_all_psfs`,
   :func:`lightcurver_tpu_torch.processes.star_photometry.do_star_photometry`,
   ``normalization_calculation.calculate_coefficient`` and

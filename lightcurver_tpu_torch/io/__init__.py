@@ -1,2 +1,1 @@
-"""FITS and WCS (copies of what the ROI task calls from
-``lightcurver_tpu/io``)."""
+"""FITS and WCS (copies of ``lightcurver_tpu/io``)."""

@@ -1,5 +1,5 @@
-"""Minimal FITS reader and writer: a copy of ``Header``, ``read_fits`` and
-``write_fits`` of ``lightcurver_tpu/io/fits.py``.
+"""Minimal FITS reader and writer: a copy of ``Header``, ``read_fits``,
+``read_fits_header_many`` and ``write_fits`` of ``lightcurver_tpu/io/fits.py``.
 
 The standard's core: 2880-byte blocks, 80-char cards, primary + IMAGE
 extensions, BITPIX in {8, 16, 32, 64, -32, -64}, BSCALE/BZERO, big-endian
@@ -364,6 +364,18 @@ def read_fits(path, hdu_index=0, header_only=False, memmap=False):
             # skip this HDU's data (padded to block size)
             fh.seek((nbytes + BLOCK - 1) // BLOCK * BLOCK, 1)
             idx += 1
+
+
+def read_fits_header_many(path, hdu_indexes):
+    """One Header merged from several HDUs' (the config's
+    ``hdu_header_indexes``), without COMMENT and HISTORY cards."""
+    merged = Header()
+    for idx in hdu_indexes:
+        _, h = read_fits(path, hdu_index=idx, header_only=True)
+        for k, v, c in h.cards():
+            if k not in ("COMMENT", "HISTORY", ""):
+                merged[k] = (v, c)
+    return merged
 
 
 _STRUCTURAL = ("SIMPLE", "BITPIX", "NAXIS", "NAXIS1", "NAXIS2", "NAXIS3",

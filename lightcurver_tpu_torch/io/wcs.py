@@ -1,5 +1,5 @@
-"""TAN (gnomonic) WCS: a copy of ``TanWCS`` (its constructors, header
-cards and transforms) and ``upsampled_wcs`` of ``lightcurver_tpu/io/wcs.py``.
+"""TAN (gnomonic) WCS: a copy of ``lightcurver_tpu/io/wcs.py`` (``TanWCS``,
+``upsampled_wcs`` and ``strip_wcs_cards``).
 
 The FITS WCS paper-II TAN projection with a CD matrix and optional SIP
 distortion. Conventions: pixel coordinates are 0-based (x along columns /
@@ -206,6 +206,55 @@ class TanWCS:
         u, v = self._undistort(u, v)
         return (u + self.crpix1 - 1.0, v + self.crpix2 - 1.0)
 
+    # -- derived quantities ---------------------------------------------------
+
+    def pixel_scale_arcsec(self):
+        """Geometric-mean pixel scale, arcsec/pixel."""
+        return math.sqrt(abs(np.linalg.det(self.cd))) * 3600.0
+
+    def pixel_anisotropy(self):
+        """|sx - sy| / (sx + sy): the reference's bad-solution flag
+        (processes/plate_solving.py:110-123)."""
+        sx = math.hypot(self.cd[0, 0], self.cd[1, 0])
+        sy = math.hypot(self.cd[0, 1], self.cd[1, 1])
+        return abs(sx - sy) / (sx + sy)
+
+    def north_angle_deg(self):
+        """Position angle of celestial north measured from the +y axis of
+        the image, counter-clockwise, degrees (utilities/footprint.py:202-224
+        equivalent)."""
+        cx, cy = self.crpix1 - 1.0, self.crpix2 - 1.0
+        ra0, dec0 = self.pixel_to_world(cx, cy)
+        step = 10.0 / 3600.0  # 10 arcsec north
+        x1, y1 = self.world_to_pixel(ra0, dec0 + step)
+        return math.degrees(math.atan2(-(x1 - cx), y1 - cy))
+
+    def footprint_polygon(self, shape):
+        """Corner (ra, dec) list for an image of ``shape`` (ny, nx).
+
+        Corner RAs are unwrapped to be CONTINUOUS around the frame
+        center (CRVAL1): a field straddling RA = 0 would otherwise mix
+        corners near 359.9 with corners near 0.1 and every flat-plane
+        polygon consumer (intersection/union, centroids, containment)
+        would see a ~360-degree-wide footprint.  Values may therefore
+        be slightly negative or above 360; consumers that need [0, 360)
+        (the Gaia ADQL emitter) re-wrap with mod.
+        """
+        ny, nx = shape
+        xs = np.array([0.0, nx - 1.0, nx - 1.0, 0.0])
+        ys = np.array([0.0, 0.0, ny - 1.0, ny - 1.0])
+        ra, dec = self.pixel_to_world(xs, ys)
+        ra = self.crval1 + (ra - self.crval1 + 180.0) % 360.0 - 180.0
+        return list(zip(ra.tolist(), dec.tolist()))
+
+    def contains_world(self, ra, dec, shape, margin_pixels=0.0):
+        """Is (ra, dec) inside the image (with optional inner margin)?"""
+        x, y = self.world_to_pixel(ra, dec)
+        ny, nx = shape
+        m = margin_pixels
+        return bool(np.all((x >= m) & (x <= nx - 1 - m)
+                           & (y >= m) & (y <= ny - 1 - m)))
+
 
 def upsampled_wcs(wcs, s):
     """WCS of the s-times-subsampled fine grid of ``wcs``'s image.
@@ -239,3 +288,15 @@ def upsampled_wcs(wcs, s):
                   sip_a=rescale(wcs.sip_a), sip_b=rescale(wcs.sip_b),
                   sip_ap=rescale(wcs.sip_ap),
                   sip_bp=rescale(wcs.sip_bp))
+
+
+def strip_wcs_cards(header):
+    """Remove the WCS cards from a Header in place (the import strips them
+    when the plate-solving task will write a fresh WCS)."""
+    prefixes = ("CTYPE", "CRVAL", "CRPIX", "CD1_", "CD2_", "CDELT", "CROTA",
+                "PC1_", "PC2_", "CUNIT", "PV1_", "PV2_", "A_", "B_", "AP_",
+                "BP_", "WCSAXES", "LONPOLE", "LATPOLE", "EQUINOX", "RADESYS")
+    for key in list(header.keys()):
+        if any(key.startswith(p) for p in prefixes):
+            del header[key]
+    return header

@@ -1,2 +1,2 @@
-"""The pipeline's configuration and state store (copies of what the ROI
-task calls from ``lightcurver_tpu/structure``)."""
+"""The pipeline's configuration and state store (copies of
+``lightcurver_tpu/structure``)."""

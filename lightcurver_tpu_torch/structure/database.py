@@ -1,10 +1,13 @@
-"""SQLite state store: a copy of the query helpers of
-``lightcurver_tpu/structure/database.py`` that the port's tasks call
-(``execute_sqlite_query``, ``executemany_sqlite``, ``get_pandas``, and the
-star selection ``select_stars`` / ``select_stars_for_a_frame``). The
-schema, and writing it, stay with the JAX package's pipeline for now.
-pandas is imported by the queries that return a DataFrame, so the module
-imports without it.
+"""SQLite state store: a copy of ``lightcurver_tpu/structure/database.py``.
+
+The schema (``_FRAMES_COLUMNS``, ``_SCHEMA``) and ``initialize_database``,
+which writes it with the same SQL text as the JAX package, so one
+database serves either package's tasks; the query helpers
+(``execute_sqlite_query``, ``executemany_sqlite``, ``get_pandas``,
+``get_count_based_on_conditions``), the star selection (``select_stars``,
+``select_stars_for_a_frame``) and the stars of a frame
+(``query_all_stars_for_frame_and_footprint``). pandas is imported by the
+queries that return a DataFrame, so the module imports without it.
 """
 
 import sqlite3
@@ -12,6 +15,129 @@ import sqlite3
 import numpy as np
 
 from .user_config import _as_name_list, get_user_config
+
+_FRAMES_COLUMNS = [
+    "id INTEGER PRIMARY KEY",
+    "mjd REAL",
+    "exptime REAL",
+    "gain REAL",
+    "original_image_path TEXT",
+    "image_relpath TEXT UNIQUE",
+    "sources_relpath TEXT",
+    "telescope_latitude REAL",
+    "telescope_longitude REAL",
+    "telescope_elevation REAL",
+    "telescope_name TEXT",
+    "telescope_imager_name TEXT",
+    "plate_solved INTEGER DEFAULT 0",
+    "attempted_plate_solve INTEGER DEFAULT 0",
+    "pixel_scale REAL DEFAULT NULL",
+    "eliminated INTEGER DEFAULT 0",
+    "airmass REAL DEFAULT NULL",
+    "degrees_to_moon REAL DEFAULT NULL",
+    "moon_phase REAL DEFAULT NULL",
+    "sun_altitude REAL DEFAULT NULL",
+    "seeing_pixels REAL DEFAULT NULL",
+    "seeing_arcseconds REAL DEFAULT NULL",
+    "sky_level_electron_per_second REAL DEFAULT NULL",
+    "background_rms_electron_per_second REAL DEFAULT NULL",
+    "ellipticity REAL DEFAULT NULL",
+    "azimuth REAL DEFAULT NULL",
+    "altitude REAL DEFAULT NULL",
+    "comment TEXT DEFAULT NULL",
+    "roi_in_footprint INTEGER DEFAULT 0",
+    "angle_to_north REAL DEFAULT 0.0",
+]
+
+_SCHEMA = {
+    "footprints": """(
+        frame_id INTEGER PRIMARY KEY,
+        polygon TEXT NOT NULL,
+        FOREIGN KEY (frame_id) REFERENCES frames (id))""",
+    "combined_footprint": """(
+        id INTEGER PRIMARY KEY,
+        hash INTEGER UNIQUE,
+        largest TEXT,
+        common TEXT)""",
+    "stars": """(
+        combined_footprint_hash INTEGER,
+        name TEXT DEFAULT NULL,
+        ra REAL,
+        dec REAL,
+        gmag REAL,
+        rmag REAL,
+        bmag REAL,
+        pmra REAL,
+        pmdec REAL,
+        ref_epoch REAL,
+        gaia_id TEXT,
+        distance_to_roi_arcsec REAL,
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, gaia_id))""",
+    "catalog_star_photometry": """(
+        star_gaia_id TEXT,
+        catalog TEXT,
+        band TEXT,
+        mag REAL,
+        mag_err REAL,
+        original_catalog_id TEXT,
+        FOREIGN KEY (star_gaia_id) REFERENCES stars(gaia_id),
+        PRIMARY KEY (catalog, star_gaia_id))""",
+    "stars_in_frames": """(
+        frame_id INTEGER,
+        star_gaia_id TEXT,
+        combined_footprint_hash INTEGER,
+        FOREIGN KEY (frame_id) REFERENCES frames(id),
+        FOREIGN KEY (star_gaia_id) REFERENCES stars(gaia_id),
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, frame_id, star_gaia_id))""",
+    "PSFs": """(
+        combined_footprint_hash INTEGER,
+        frame_id INTEGER,
+        chi2 REAL,
+        psf_ref TEXT,
+        subsampling_factor INTEGER,
+        relative_loss_differential REAL,
+        fwhm_moffat_arcseconds REAL DEFAULT NULL,
+        FOREIGN KEY (frame_id) REFERENCES frames(id),
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, frame_id, psf_ref))""",
+    "star_flux_in_frame": """(
+        frame_id INTEGER,
+        star_gaia_id TEXT,
+        combined_footprint_hash INTEGER,
+        flux REAL,
+        flux_uncertainty REAL,
+        chi2 REAL,
+        relative_loss_differential REAL,
+        FOREIGN KEY (frame_id) REFERENCES frames(id),
+        FOREIGN KEY (star_gaia_id) REFERENCES stars(gaia_id),
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, frame_id, star_gaia_id))""",
+    "normalization_coefficients": """(
+        frame_id INTEGER,
+        combined_footprint_hash INTEGER,
+        coefficient REAL,
+        coefficient_uncertainty REAL,
+        FOREIGN KEY (frame_id) REFERENCES frames(id),
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, frame_id))""",
+    "absolute_zeropoints": """(
+        frame_id INTEGER,
+        combined_footprint_hash INTEGER,
+        zeropoint REAL,
+        zeropoint_uncertainty REAL,
+        source_catalog TEXT,
+        FOREIGN KEY (frame_id) REFERENCES frames(id),
+        FOREIGN KEY (combined_footprint_hash)
+            REFERENCES combined_footprint(hash),
+        PRIMARY KEY (combined_footprint_hash, frame_id))""",
+}
 
 
 def _db_path(db_path=None):
@@ -25,6 +151,22 @@ def _connect(db_path=None, timeout=15.0):
     conn.execute("PRAGMA journal_mode=WAL")
     conn.execute("PRAGMA busy_timeout=15000")
     return conn
+
+
+def initialize_database(db_path=None):
+    """Create all tables (idempotent); add new frames columns on upgrade."""
+    with _connect(db_path) as conn:
+        conn.execute(
+            f"CREATE TABLE IF NOT EXISTS frames ({', '.join(_FRAMES_COLUMNS)})")
+        # forward-compatible: an older database gains the new columns
+        for coldef in _FRAMES_COLUMNS:
+            try:
+                conn.execute(f"ALTER TABLE frames ADD COLUMN {coldef}")
+            except sqlite3.OperationalError:
+                pass
+        for table, body in _SCHEMA.items():
+            conn.execute(f"CREATE TABLE IF NOT EXISTS {table} {body}")
+        conn.commit()
 
 
 def _clean_params(params):
@@ -68,6 +210,13 @@ def get_pandas(conditions=None, columns=None, table="frames"):
     if conditions:
         query += " WHERE " + " AND ".join(conditions)
     return execute_sqlite_query(query, use_pandas=True)
+
+
+def get_count_based_on_conditions(conditions, table="frames"):
+    """COUNT(*) under a raw SQL condition string."""
+    rows = execute_sqlite_query(
+        f"SELECT COUNT(*) FROM {table} WHERE {conditions}")
+    return rows[0][0]
 
 
 def _apply_star_selection(base_query, base_params, stars_to_use,
@@ -128,3 +277,20 @@ def select_stars_for_a_frame(frame_id, combined_footprint_hash,
         WHERE sif.frame_id = ? AND s.combined_footprint_hash = ?"""
     return _apply_star_selection(base, (frame_id, combined_footprint_hash),
                                  stars_to_use, stars_to_exclude)
+
+
+def query_all_stars_for_frame_and_footprint(frame_id,
+                                            combined_footprint_hash=None):
+    """All stars linked to a frame, optionally filtered by footprint."""
+    query = """
+        SELECT stars.* FROM stars
+        INNER JOIN stars_in_frames
+            ON stars.gaia_id = stars_in_frames.star_gaia_id
+           AND stars.combined_footprint_hash =
+               stars_in_frames.combined_footprint_hash
+        WHERE stars_in_frames.frame_id = ?"""
+    params = [frame_id]
+    if combined_footprint_hash is not None:
+        query += " AND stars.combined_footprint_hash = ?"
+        params.append(combined_footprint_hash)
+    return execute_sqlite_query(query, params, use_pandas=True)

@@ -1,4 +1,4 @@
-"""Pipeline exceptions: a copy of what the port calls from
+"""Pipeline exceptions: a copy of
 ``lightcurver_tpu/structure/exceptions.py``."""
 
 
@@ -9,3 +9,8 @@ class NoConfigFilePathInEnvironment(Exception):
         super().__init__(
             "Please define the environment variable LIGHTCURVER_CONFIG: "
             "a path to your config.yaml file.")
+
+
+class TaskWasNotSuccessful(Exception):
+    """Raised when every job of a task failed, and by the post-task health
+    checks (``pipeline/state_checkers.py``)."""

@@ -207,11 +207,12 @@ def _run(code_or_args, cwd):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module imports in a fresh process as on the card's
-    machine, which has no jax, h5py, pandas or PyYAML (blocked here), and
-    none brings in jax or the JAX package."""
+    machine, which has no jax, h5py, pandas or PyYAML (blocked here, with
+    requests, which only the nova.astrometry.net client imports), and none
+    brings in jax or the JAX package."""
     code = (
         "import sys\n"
-        "for name in ('h5py', 'pandas', 'yaml'):\n"
+        "for name in ('h5py', 'pandas', 'yaml', 'requests'):\n"
         "    sys.modules[name] = None\n"
         "import pkgutil, importlib, lightcurver_tpu_torch as p\n"
         "for mod in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -224,7 +225,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 53
+    assert int(proc.stdout.split()[-1]) >= 72
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

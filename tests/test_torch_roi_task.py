@@ -35,7 +35,6 @@ import yaml
 
 from lightcurver_tpu.io import fits as jfits
 from lightcurver_tpu.io import wcs as jwcs
-from lightcurver_tpu.structure.database import initialize_database
 from lightcurver_tpu.utilities import footprint as jfootprint
 from lightcurver_tpu.utilities import lightcurves_postprocessing as jlc
 from lightcurver_tpu.utilities.synthetic import make_roi_scene
@@ -44,6 +43,7 @@ from lightcurver_tpu_torch.core import optimize as topt
 from lightcurver_tpu_torch.io import fits as tfits
 from lightcurver_tpu_torch.io import wcs as twcs
 from lightcurver_tpu_torch.processes import roi_modelling as troi
+from lightcurver_tpu_torch.structure.database import initialize_database
 from lightcurver_tpu_torch.utilities import footprint as tfootprint
 from lightcurver_tpu_torch.utilities import lightcurves_postprocessing as tlc
 
