@@ -135,20 +135,37 @@ prints no result:
    >= 95 % of the stars found within 0.5 px, the transform within
    0.05 px, >= 90 % of the hit pixels masked; each body's wall beside the
    card line.
+13. the port's pipeline shell: the synthetic scene of
+   tests/test_e2e_pipeline.py (3 frames of 160 px, 8 stars, 2 blended ROI
+   sources, its Gaia fixture and config; ``write_e2e_scene``, from
+   ``default_rng(42)``) through ``WorkflowManager(device="cuda")`` to
+   ``query_gaia_for_stars``, each task's wall: 3 frames imported,
+   plate-solved, kept, the ROI in every footprint, 8 stars each assigned
+   to every frame; the same through ``python -m
+   lightcurver_tpu_torch.scripts.run <config> --stop query_gaia_for_stars``
+   in a subprocess on a fresh copy, which must give the same DB rows.
+   Where h5py is installed the run goes on from ``stamp_extraction`` to
+   the light curves, printing each task's wall and the K1 and K2 launches
+   it made, and holds the e2e test's eight invariants (seeing, PSF chi2,
+   star fluxes, normalization and zeropoints, the ROI products, an
+   incremental rerun, the adapt-WCS fault, the field-distortion redo);
+   without h5py one line names the task it stopped before and why.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
 its launches over every run of the main path (phases 5, 5b, 7, 7b, 9 to
-9d, 10, 10b and 11's pipelined runs), and, last, the device line. There
-is no CPU path: without a card the script fails.
+9d, 10, 10b, 11's pipelined runs and 13's pipeline run), and, last, the
+device line. There is no CPU path: without a card the script fails.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -1294,6 +1311,380 @@ def phase_front(np, card, size=FRONT["size"], grid=FRONT["grid"],
     return walls
 
 
+# the synthetic scene of tests/test_e2e_pipeline.py: 3 frames of 160 px at
+# 0.2"/px, 8 stars around the ROI, two blended ROI sources, a recorded Gaia
+# fixture and that test's config (the example config plus small budgets)
+E2E = dict(ra=42.2031, dec=19.22528, scale=0.2 / 3600.0, size=160,
+           exptime=30.0, gain=1.2, sky=10.0, n_frames=3, seed=42)
+E2E_STARS = [((-6, -6), 800.0), ((6, -6), 600.0), ((-6, 6), 1000.0),
+             ((6, 6), 700.0), ((8, 0), 500.0), ((0, 8), 900.0),
+             ((-8, 0), 650.0), ((0, -8), 750.0)]   # offsets ("), e-/s
+E2E_PS = {"A": ((-0.8, 0.5), [300.0, 360.0, 330.0]),
+          "B": ((0.7, -0.6), [150.0, 120.0, 135.0])}
+E2E_FWHM_PX = [2.6, 3.1, 2.8]
+E2E_DITHER_PX = [(0.0, 0.0), (1.4, -0.8), (-1.1, 0.6)]
+E2E_CONFIG = {
+    "already_plate_solved": 1, "multiprocessing_cpu_count": 1,
+    "background_estimation_n_boxes": 3, "source_extraction_threshold": 3.0,
+    "source_extraction_min_area": 5, "source_extraction_do_plots": 0,
+    "star_selection_strategy": "ROI_disk", "ROI_disk_radius_arcseconds": 30,
+    "min_number_stars": 5, "stamp_size_stars": 16, "stamp_size_ROI": 24,
+    "cosmics_masking_params": {"sigclip": 6.0, "sigfrac": 0.3,
+                               "objlim": 5.0},
+    "subsampling_factor": 2, "psf_n_iter_analytic": 40,
+    "psf_n_iter_pixels": 150, "star_deconv_n_iter": 250,
+    "roi_deconv_translations_iters": 40, "roi_deconv_all_iters": 400,
+    "deconv_checkpoint_every": 100, "fix_point_source_astrometry": 0.5,
+    "constraints_on_frame_columns_for_roi": {},
+    "constraints_on_normalization_coeff": {},
+}
+
+
+def e2e_sky(np, dx, dy):
+    """(ra, dec) of an offset in arcsec from the ROI."""
+    return (E2E["ra"] + dx / 3600.0 / np.cos(np.radians(E2E["dec"])),
+            E2E["dec"] + dy / 3600.0)
+
+
+def e2e_wcs(dither_px):
+    from lightcurver_tpu_torch.io.wcs import TanWCS
+
+    c = (E2E["size"] + 1) / 2.0  # 1-based centre
+    return TanWCS(E2E["ra"], E2E["dec"], c + dither_px[0], c + dither_px[1],
+                  [[-E2E["scale"], 0.0], [0.0, E2E["scale"]]])
+
+
+def e2e_frame(np, k, star_world, wcs):
+    """Frame k's clean e-/s image: the stars and ROI sources, each an
+    analytic Moffat (beta 2.8) of the frame's FWHM."""
+    size, fwhm = E2E["size"], E2E_FWHM_PX[k]
+    img = np.zeros((size, size))
+    yy, xx = np.mgrid[0:size, 0:size]
+
+    def add_source(x, y, flux):
+        beta = 2.8
+        root = np.sqrt(2.0 ** (1.0 / beta) - 1.0)
+        alpha = fwhm / (2 * root)
+        rr2 = (xx - x) ** 2 + (yy - y) ** 2
+        norm = (beta - 1.0) / (np.pi * alpha**2)
+        img[:] += flux * norm * (1.0 + rr2 / alpha**2) ** (-beta)
+
+    for (ra, dec), flux in star_world:
+        x, y = wcs.world_to_pixel(ra, dec)
+        add_source(float(x), float(y), flux)
+    for (dx, dy), fluxes in E2E_PS.values():
+        x, y = wcs.world_to_pixel(*e2e_sky(np, dx, dy))
+        add_source(float(x), float(y), fluxes[k])
+    return img
+
+
+def write_e2e_scene(np, root):
+    """Write the e2e scene into ``root``: raw frames (ADU, float32), the
+    Gaia fixture CSV, the header parser and ``config.yaml`` (the port's
+    example config with ``E2E_CONFIG``). Returns (config, fixture) paths.
+    Needs pandas and PyYAML."""
+    import pandas as pd
+    import yaml
+    from lightcurver_tpu_torch.io.fits import Header, write_fits
+
+    raw_dir = root / "raw"
+    raw_dir.mkdir(parents=True)
+    rng = np.random.default_rng(E2E["seed"])
+    stars = []
+    for i, ((dx, dy), flux) in enumerate(E2E_STARS):
+        ra, dec = e2e_sky(np, dx, dy)
+        gmag = 20.0 - 2.5 * np.log10(flux)
+        stars.append({
+            "ra": ra, "dec": dec, "source_id": 1000 + i,
+            "phot_g_mean_mag": gmag, "phot_bp_mean_mag": gmag + 0.5,
+            "phot_rp_mean_mag": gmag - 0.5, "pmra": 0.0, "pmdec": 0.0,
+            "ref_epoch": 2016.0})
+    fixture = root / "gaia_fixture.csv"
+    pd.DataFrame(stars).to_csv(fixture, index=False)
+    star_world = [((s["ra"], s["dec"]), flux)
+                  for s, (_, flux) in zip(stars, E2E_STARS)]
+    for k in range(E2E["n_frames"]):
+        wcs = e2e_wcs(E2E_DITHER_PX[k])
+        total_e = (e2e_frame(np, k, star_world, wcs) + E2E["sky"]) \
+            * E2E["exptime"]
+        adu = (total_e + rng.normal(0, np.sqrt(total_e))) / E2E["gain"]
+        header = Header()
+        header["MJD-OBS"] = 60000.0 + 2.0 * k
+        header["EXPTIME"] = E2E["exptime"]
+        header["GAIN"] = E2E["gain"]
+        header.update(wcs.to_header_cards())
+        write_fits(raw_dir / f"frame_{k:02d}.fits", adu.astype(np.float32),
+                   header)
+    (root / "header_parser").mkdir()
+    (root / "header_parser" / "parse_header.py").write_text(
+        "def parse_header(header):\n"
+        "    return {'mjd': header['MJD-OBS'], 'gain': header['GAIN'],\n"
+        "            'exptime': header['EXPTIME']}\n")
+    template = (HERE / "lightcurver_tpu_torch" / "pipeline"
+                / "example_config_file" / "config.yaml")
+    config = yaml.safe_load(template.read_text())
+    config.update(E2E_CONFIG, workdir=str(root), raw_dirs=[str(raw_dir)],
+                  point_sources={ps: [float(v) for v in e2e_sky(np, *off)]
+                                 for ps, (off, _) in E2E_PS.items()})
+    config_path = root / "config.yaml"
+    config_path.write_text(yaml.dump(config))
+    return config_path, fixture
+
+
+@contextmanager
+def e2e_env(config, fixture):
+    """LIGHTCURVER_CONFIG and LIGHTCURVER_GAIA_FIXTURE for one scene."""
+    old = {k: os.environ.get(k) for k in ("LIGHTCURVER_CONFIG",
+                                          "LIGHTCURVER_GAIA_FIXTURE")}
+    os.environ["LIGHTCURVER_CONFIG"] = str(config)
+    os.environ["LIGHTCURVER_GAIA_FIXTURE"] = str(fixture)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def db_rows(root):
+    """Every table's rows, sorted, with the scene's root in strings made
+    relative (two scenes differ only there)."""
+    import sqlite3
+
+    def value(v):
+        return v.replace(str(root), "<root>") if isinstance(v, str) else v
+
+    with sqlite3.connect(root / "database.sqlite3") as conn:
+        names = [r[0] for r in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type = 'table' "
+            "ORDER BY name")]
+        return {name: sorted((tuple(value(v) for v in row) for row in
+                              conn.execute(f"SELECT * FROM {name}")),
+                             key=repr)
+                for name in names}
+
+
+def timed_tasks(manager):
+    """Wrap ``manager.execute_task`` to record each task's wall."""
+    walls = {}
+    inner = manager.execute_task
+
+    def execute(task):
+        t0 = time.perf_counter()
+        inner(task)
+        walls[task["name"]] = time.perf_counter() - t0
+
+    manager.execute_task = execute
+    return walls
+
+
+def phase_pipeline(np, torch, starlet_cuda, k2, card, work, device="cuda"):
+    """13, the port's pipeline shell on the card's machine: the e2e scene
+    through ``WorkflowManager(device="cuda")`` to ``query_gaia_for_stars``
+    and the same through ``python -m lightcurver_tpu_torch.scripts.run``
+    on a fresh copy (the same DB rows); then, where h5py is installed,
+    the rest of the pipeline from ``stamp_extraction`` with the e2e test's
+    invariants. Returns the K1 and K2 launches of that run. (``device``
+    "cpu" runs the same on a host without a card.)"""
+    import shutil
+    import sqlite3
+
+    from lightcurver_tpu_torch.pipeline.workflow_manager import \
+        WorkflowManager
+
+    root = work / "e2e"
+    shutil.rmtree(root, ignore_errors=True)
+    front = "query_gaia_for_stars"
+    manager_dir, cli_dir = root / "manager", root / "cli"
+    config, fixture = write_e2e_scene(np, manager_dir)
+    cli_config, cli_fixture = write_e2e_scene(np, cli_dir)
+
+    with e2e_env(config, fixture):
+        manager = WorkflowManager(device=device)
+        walls = timed_tasks(manager)
+        manager.run(stop_step=front)
+    say(13, f"WorkflowManager(device={device!r}).run(stop_step={front!r}) "
+        f"(card {card}): " + ", ".join(f"{name} {wall:.3f} s"
+                                       for name, wall in walls.items()))
+
+    def query(sql):
+        with sqlite3.connect(manager_dir / "database.sqlite3") as conn:
+            return conn.execute(sql).fetchone()
+
+    n, n_stars = E2E["n_frames"], len(E2E_STARS)
+    (n_frames,) = query("SELECT COUNT(*) FROM frames")
+    (solved,) = query("SELECT COUNT(*) FROM frames WHERE plate_solved = 1 "
+                      "AND eliminated = 0 AND roi_in_footprint = 1")
+    (stars,) = query("SELECT COUNT(*) FROM stars")
+    assigned = query("SELECT COUNT(DISTINCT star_gaia_id), COUNT(*) "
+                     "FROM stars_in_frames")
+    say(13, f"{n_frames} frames imported, {solved} solved, kept and "
+        f"holding the ROI; {stars} stars, {assigned[0]} of them in "
+        f"{assigned[1]} (frame, star) pairs")
+    check(n_frames == n and solved == n, "e2e: the frames were not all "
+          "imported, plate-solved and kept with the ROI in their footprint")
+    check(stars == n_stars and assigned == (n_stars, n * n_stars),
+          "e2e: the stars were not all selected and assigned to frames")
+
+    env = {**os.environ, "LIGHTCURVER_GAIA_FIXTURE": str(cli_fixture)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lightcurver_tpu_torch.scripts.run",
+         str(cli_config), "--stop", front, "--device", device], cwd=HERE,
+        env=env, capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"e2e CLI failed:\n{proc.stderr[-3000:]}")
+    same = db_rows(cli_dir) == db_rows(manager_dir)
+    say(13, f"python -m lightcurver_tpu_torch.scripts.run --stop {front}: "
+        f"{cli_wall:.3f} s wall, process start included (card {card}); "
+        f"the same DB rows as the manager's run: {same}")
+    check(same, "e2e: the CLI's database differs from the manager's")
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        say(13, f"stopped before stamp_extraction: {e}; the tasks from "
+            "stamp_extraction on (regions.h5) need h5py and did not run")
+        return (0, 0, 0, 0)
+    return phase_pipeline_rest(np, torch, starlet_cuda, k2, card,
+                               manager_dir, config, fixture, manager, device)
+
+
+def phase_pipeline_rest(np, torch, starlet_cuda, k2, card, root, config,
+                        fixture, manager, device):
+    """13, continued where h5py is installed: the pipeline from
+    ``stamp_extraction`` to the light curves on the card, each task's wall
+    and the K1 and K2 launches of the run, then the eight invariants of
+    tests/test_e2e_pipeline.py."""
+    import csv
+    import sqlite3
+
+    import yaml
+    from lightcurver_tpu_torch.io.fits import read_fits
+    from lightcurver_tpu_torch.io.wcs import TanWCS
+    from lightcurver_tpu_torch.pipeline.workflow_manager import \
+        WorkflowManager
+    from lightcurver_tpu_torch.processes.\
+        alternate_plate_solving_adapt_existing_wcs import \
+        alternate_plate_solve_adapt_ref
+
+    def query(sql):
+        with sqlite3.connect(root / "database.sqlite3") as conn:
+            return conn.execute(sql).fetchall()
+
+    def edit_config(**values):
+        cfg = yaml.safe_load(config.read_text())
+        cfg.update(values)
+        config.write_text(yaml.dump(cfg))
+
+    n, n_stars = E2E["n_frames"], len(E2E_STARS)
+    with e2e_env(config, fixture):
+        walls = timed_tasks(manager)
+        starlet_cuda.launches.reset()
+        k2.reset()
+        manager.run(start_step="stamp_extraction")
+        launches = (starlet_cuda.launches.forward,
+                    starlet_cuda.launches.adjoint, k2.forward, k2.backward)
+        say(13, f"run(start_step='stamp_extraction') (card {card}): "
+            + ", ".join(f"{name} {wall:.3f} s" for name, wall in
+                        walls.items())
+            + f"; launches K1 forward {launches[0]}, adjoint {launches[1]}, "
+            f"K2 forward {launches[2]}, backward {launches[3]}")
+
+        seeing = sorted(r[0] for r in query(
+            "SELECT seeing_pixels FROM frames"))
+        check(np.allclose(seeing, sorted(E2E_FWHM_PX), atol=0.8),
+              f"e2e: seeing {seeing} off the injected FWHM")
+        psf_chi2 = [r[0] for r in query("SELECT chi2 FROM PSFs")]
+        check(len(psf_chi2) == n and max(psf_chi2) < 2.0,
+              f"e2e: PSF chi2 {psf_chi2}")
+        fluxes = query("SELECT star_gaia_id, flux, chi2 FROM "
+                       "star_flux_in_frame")
+        check(len(fluxes) == n * n_stars
+              and max(r[2] for r in fluxes) < 2.0,
+              "e2e: star fluxes missing or chi2 >= 2")
+        for i, (_, flux) in enumerate(E2E_STARS):
+            got = np.median([r[1] for r in fluxes if r[0] == str(1000 + i)])
+            check(abs(got / flux - 1) <= 0.1, f"e2e: star {1000 + i} flux "
+                  f"{got} against {flux}")
+        coeffs = [r[0] for r in query(
+            "SELECT coefficient FROM normalization_coefficients")]
+        check(len(coeffs) == n and np.allclose(coeffs, 1.0, atol=0.05),
+              f"e2e: normalization coefficients {coeffs}")
+        check(len(query("SELECT * FROM absolute_zeropoints")) == n,
+              "e2e: zeropoints missing")
+
+        out_dir = root / "prepared_roi_cutouts"
+        (per_epoch,) = out_dir.glob("*_photometry_per_epoch.csv")
+        with open(per_epoch) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == n and all(float(r["reduced_chi2"]) < 2.0
+                                     for r in rows),
+              "e2e: ROI photometry rows missing or chi2 >= 2")
+        dmag = []
+        for ps, ((dx, dy), truth) in E2E_PS.items():
+            got = np.array([float(r[f"{ps}_flux"]) for r in rows])
+            check(np.allclose(got, truth, rtol=0.15),
+                  f"e2e: ROI source {ps} fluxes {got} against {truth}")
+            dmag += list(np.abs(2.5 * np.log10(got / truth)))
+        (astrometry,) = out_dir.glob("*_astrometry.json")
+        fitted = json.loads(astrometry.read_text())
+        for ps, ((dx, dy), _) in E2E_PS.items():
+            ra, dec = e2e_sky(np, dx, dy)
+            check(abs(fitted[ps][0] - ra) * 3600 < 0.3
+                  and abs(fitted[ps][1] - dec) * 3600 < 0.3,
+                  f"e2e: ROI source {ps} astrometry off by > 0.3 arcsec")
+        check(any(out_dir.glob("*_high_res_model.fits"))
+              and any(out_dir.glob("*_stack.fits")),
+              "e2e: the high-resolution model or the stacks are missing")
+        check(not any((root / "checkpoints").glob("*.ckpt")),
+              "e2e: a checkpoint was left behind")
+        say(13, f"invariants 1-5 held: seeing {np.round(seeing, 3)}, PSF "
+            f"chi2 max {max(psf_chi2):.3f}, ROI fluxes max |dmag| to the "
+            f"injected {max(dmag) * 1e3:.2f} mmag")
+
+        counts = [len(query(f"SELECT * FROM {t}")) for t in
+                  ("frames", "PSFs", "star_flux_in_frame")]
+        WorkflowManager(device=device).run(
+            stop_step="calculate_normalization_coefficient")
+        check([len(query(f"SELECT * FROM {t}")) for t in
+               ("frames", "PSFs", "star_flux_in_frame")] == counts,
+              "e2e: the rerun was not incremental")
+
+        with sqlite3.connect(root / "database.sqlite3") as conn:
+            conn.execute("UPDATE frames SET plate_solved = 0, "
+                         "attempted_plate_solve = 0 WHERE id = 2")
+        edit_config(plate_solve_frames="all_not_plate_solved",
+                    reference_frame_for_wcs=1)
+        alternate_plate_solve_adapt_ref()
+        (relpath, solved), = query("SELECT image_relpath, plate_solved "
+                                   "FROM frames WHERE id = 2")
+        _, header = read_fits(root / relpath, header_only=True)
+        x, y = TanWCS.from_header(header).world_to_pixel(E2E["ra"],
+                                                         E2E["dec"])
+        xt, yt = e2e_wcs(E2E_DITHER_PX[1]).world_to_pixel(E2E["ra"],
+                                                          E2E["dec"])
+        wcs_px = max(abs(float(x) - float(xt)), abs(float(y) - float(yt)))
+        check(solved == 1 and wcs_px < 0.3, f"e2e: the adapted WCS is off "
+              f"by {wcs_px:.3f} px")
+        edit_config(plate_solve_frames="all_never_attempted",
+                    reference_frame_for_wcs=None)
+
+        edit_config(field_distortion=True, redo_psf=True,
+                    psf_n_iter_analytic=20, psf_n_iter_pixels=60)
+        WorkflowManager(device=device).run(start_step="psf_modeling",
+                                           stop_step="psf_modeling")
+        redo = [r[0] for r in query("SELECT chi2 FROM PSFs")]
+        check(len(redo) == n and max(redo) < 3.0,
+              f"e2e: field-distortion PSF chi2 {redo}")
+        say(13, f"invariants 6-8 held: the rerun fitted nothing new, the "
+            f"adapted WCS within {wcs_px:.3f} px, the field-distortion "
+            f"PSFs' chi2 max {max(redo):.3f}")
+    return launches
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -1503,11 +1894,13 @@ def main():
                         fit_stars_batched, star_photometry_scene, optimize,
                         stars, counters, star_fits[3][1:], work, card)]
     phase_front(np, card)
+    pipeline_run = phase_pipeline(np, torch, starlet_cuda, k2, card, work)
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,
-    # and the PSF and star tasks' pipelined buckets
-    main_runs = star_runs + resumed_runs + task_runs
+    # the PSF and star tasks' pipelined buckets, and the pipeline run of
+    # phase 13 from stamp_extraction (none where h5py is missing)
+    main_runs = star_runs + resumed_runs + task_runs + [pipeline_run]
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \

@@ -1,20 +1,23 @@
 """lightcurver_tpu_torch: the joint ROI deconvolution, the narrow-PSF fit
-and the star-batched photometry in PyTorch, for CUDA, with the pipeline
-tasks from the database schema and the frame import to the ROI model.
+and the star-batched photometry in PyTorch, for CUDA, with the whole
+12-task pipeline around them, from raw frames to the light curves.
 
 A port of ``lightcurver_tpu`` (JAX) to PyTorch. The layout mirrors the
 JAX package (``core/``, ``core/deconv/``, ``core/psf/``, ``ops/``,
-``pipeline/``, ``processes/``, ``io/``, ``structure/``, ``utilities/``);
+``pipeline/``, ``processes/``, ``io/``, ``structure/``, ``utilities/``,
+``plotting/``, ``scripts/``);
 ``csrc/`` holds the hand-written CUDA kernels. Each module names its JAX
 counterpart in its docstring, and the tests hold every module against
-that counterpart on the CPU. The host modules (``io/``, ``structure/``, ``pipeline/``,
-most of ``utilities/``) are copies of the functions the port calls; the
-front's numerics are the numpy/scipy twins of the JAX package's host C++.
+that counterpart on the CPU. The host modules (``io/``, ``structure/``,
+``pipeline/``, ``plotting/``, ``scripts/``, most of ``utilities/``) are
+copies of the functions the port calls; the front's numerics are the
+numpy/scipy twins of the JAX package's host C++.
 
 At import the package needs torch, numpy, scipy and the standard library
 only: never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine
 that has neither. The pipeline tasks import h5py, pandas and PyYAML (and
-the nova.astrometry.net client ``requests``) when they run.
+the nova.astrometry.net client ``requests``) when they run, and the plots
+matplotlib when they are made.
 
 Numerics: float32 throughout, with TF32 off for matmuls and cuDNN
 (``ops.enforce_fp32``, called by every entry point).
@@ -25,6 +28,14 @@ taken on an NVIDIA H100 and carries the card's name and power limit as
 
 Entry points, each on the card unless the caller passes ``device="cpu"``:
 
+- the pipeline, ``python -m lightcurver_tpu_torch.scripts.run config.yaml
+  [--start X] [--stop Y] [--device cuda|cpu] [--irfft-backend
+  fft|matmul]``, or
+  :class:`lightcurver_tpu_torch.pipeline.workflow_manager.WorkflowManager`
+  ``(device="cuda", irfft_backend="fft").run(start_step, stop_step)``:
+  the twelve tasks below in the JAX package's order, with its config
+  check, plate-solving strategy and post-check (``python -m
+  lightcurver_tpu_torch.scripts.initialize`` scaffolds a workdir);
 - the front's pipeline tasks, named as the JAX package's, host only, from
   raw FITS frames to the stamped ``regions.h5``:
   :func:`lightcurver_tpu_torch.structure.database.initialize_database`,

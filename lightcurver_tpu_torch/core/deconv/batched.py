@@ -28,7 +28,7 @@ With ``checkpoint_path`` the AdaBelief loop runs in segments and writes
 the per-star carry to disk after each (JAX's ``_fit_stars_checkpointed``,
 through ``core/optimize.py``'s checkpoint writer and reader); a killed fit
 resumes from its last segment. Not ported here: multi-GPU meshes
-(``mesh``; ROADMAP.md queue 1 item 6).
+(``mesh``; ROADMAP.md queue 1 item 3).
 """
 
 import numpy as np
@@ -252,7 +252,7 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
             other data, PSFs, flags, budget or render. Not with
             ``fetch="device"``.
         mesh: "auto" or None, the one device; any other mesh raises
-            (multi-GPU, ROADMAP.md queue 1 item 6).
+            (multi-GPU, ROADMAP.md queue 1 item 3).
         fetch: "numpy" (default) returns host arrays; "device" the
             tensors on the device, unsynchronised.
         device: torch device of the fit: the card unless the caller asks
@@ -276,7 +276,7 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
         raise NotImplementedError(
             "fit_stars_batched: a mesh other than 'auto' or None "
-            "(multi-GPU) is not ported yet: ROADMAP.md queue 1 item 6")
+            "(multi-GPU) is not ported yet: ROADMAP.md queue 1 item 3")
     if fetch not in ("numpy", "device"):
         raise ValueError(f"fetch={fetch!r}: 'numpy' or 'device' expected")
     if checkpoint_path is not None and fetch == "device":

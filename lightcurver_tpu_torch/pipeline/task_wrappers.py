@@ -215,7 +215,15 @@ def calc_common_and_total_footprint_and_save():
     polygons = [np.array(json.loads(r[1])) for r in rows]
     common, largest = calc_common_and_total_footprint(polygons)
 
-    logger.info("plotting/ is not ported: no footprint plot.")
+    user_config = get_user_config()
+    try:
+        from ..plotting.footprint_plotting import plot_footprints
+
+        plot_path = user_config["plots_dir"] / "footprints.jpg"
+        plot_footprints(polygons, common, largest, save_path=plot_path)
+        logger.info(f"Footprint plot saved at {plot_path}.")
+    except Exception as e:
+        logger.warning(f"Footprint plot failed: {e}")
     save_combined_footprints_to_db(frames_hash, common, largest)
     logger.info(f"Combined footprint {frames_hash} saved to DB.")
 

@@ -4,8 +4,9 @@ a copy of ``lightcurver_tpu/processes/alternate_plate_solving_with_gaia.py``.
 A guess TAN WCS from the configured pixel scale and the ROI centre
 projects the Gaia stars, moved to the frame's epoch, to guess pixels;
 the triangle pattern matcher matches them to the frame's detections, and
-the fitted similarity transform corrects the WCS. plotting/ is not
-ported, so the diagnostic plot is not made.
+the fitted similarity transform corrects the WCS. A solved frame's
+detections and Gaia positions are plotted under
+``plots/gaia_plate_solve_diagnostic/``.
 """
 
 import logging
@@ -94,8 +95,19 @@ def alternate_plate_solve_gaia():
             strip_wcs_cards(header)
             header.update(wcs_new.to_header_cards())
             write_fits(frame_path, data, header)
-            logger.info(f"plotting/ is not ported: no Gaia solve plot of "
-                        f"frame {frame['id']}.")
+            try:
+                from ..plotting.sources_plotting import \
+                    plot_coordinates_and_sources_on_image
+
+                plot_dir = (user_config["plots_dir"]
+                            / "gaia_plate_solve_diagnostic")
+                plot_dir.mkdir(parents=True, exist_ok=True)
+                plot_coordinates_and_sources_on_image(
+                    data, sources=sources, gaia_coords=(ra_e, dec_e),
+                    wcs=wcs_new,
+                    save_path=plot_dir / f"{frame_path.stem}.jpg")
+            except Exception as e:
+                logger.warning(f"Gaia solve plot failed: {e}")
             post_plate_solve_steps(frame_path=frame_path,
                                    user_config=user_config,
                                    frame_id=frame["id"])

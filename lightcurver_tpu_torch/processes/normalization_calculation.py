@@ -9,9 +9,10 @@ its scaled normalised fluxes, its uncertainty their weighted std. The
 fluxes are filtered to the current star selection (``select_stars``), as
 the JAX task does (PARITY.md).
 
-Left out: the diagnostic plot of the normalised curves (``plotting/``,
-ROADMAP.md queue 1 item 4), with a logged line. pandas is imported by the
-functions that use it.
+The diagnostic plot of the normalised curves goes to
+``plots/normalization/<footprint hash>/normalization_fluxes_plot.pdf``, as
+JAX's task writes it. pandas and matplotlib are imported by the functions
+that use them.
 """
 
 import logging
@@ -156,5 +157,17 @@ def calculate_coefficient():
     norm_data = [(int(fid), footprint_hash, float(coeff[fid]),
                   float(err[fid])) for fid in coeff.keys()]
     update_normalization_coefficients(norm_data)
-    logger.info("No normalization plot: plotting/ is not ported "
-                "(ROADMAP.md queue 1 item 4).")
+
+    try:
+        from ..plotting.normalization_plotting import \
+            plot_normalized_star_curves
+
+        plot_dir = (user_config["plots_dir"] / "normalization"
+                    / str(footprint_hash))
+        plot_dir.mkdir(exist_ok=True, parents=True)
+        plot_file = plot_dir / "normalization_fluxes_plot.pdf"
+        plot_normalized_star_curves(
+            combined_footprint_hash=footprint_hash, save_path=plot_file)
+        logger.info(f"Wrote diagnostic plot at {plot_file}.")
+    except Exception as e:
+        logger.warning(f"Normalization plot failed: {e}")

@@ -14,13 +14,15 @@ returns unsynchronised tensors, so bucket i + 1's host preparation runs
 while the card fits bucket i. On one CUDA stream the copy of bucket
 i - 1's results to the host is queued behind bucket i's kernels.
 
-Left out: the per-frame diagnostic plot (``plotting/``, ROADMAP.md queue 1
-item 4); the task logs a line saying so. h5py and pandas are imported by
-the functions that use them, so the module imports without them.
+With ``psf_do_plots`` (the default) each frame's diagnostic plot is
+written to ``plots/PSFs/<footprint hash>/<id>_<frame>.jpg``, as JAX's
+task writes it. h5py, pandas and matplotlib are imported by the functions
+that use them, so the module imports without them.
 """
 
 import logging
 import threading
+from pathlib import Path
 from time import time
 
 import numpy as np
@@ -231,9 +233,6 @@ def model_all_psfs(*, device="cuda", irfft_backend="fft"):
     combined_footprint_hash = get_combined_footprint_hash(
         user_config, frames["id"].to_list())
     logger.info(f"Building PSFs for up to {len(frames)} frames.")
-    if user_config.get("psf_do_plots", 1):
-        logger.info("No PSF diagnostic plots: plotting/ is not ported "
-                    "(ROADMAP.md queue 1 item 4).")
 
     batch_size = int(user_config.get("psf_fit_batch_size", 16) or 16)
     frame_rows = [frame for _, frame in frames.iterrows()]
@@ -305,12 +304,14 @@ def run_pipelined_buckets(buckets, prepare, dispatch, store):
 
 def _store_psf_result(user_config, regions_file, job, result,
                       combined_footprint_hash, logger):
-    """Bookkeeping for one fitted frame: HDF5 datasets and the DB row."""
+    """Bookkeeping for one fitted frame: plot, HDF5, DB row."""
     import h5py
 
     frame = job["frame"]
     psf_ref = job["psf_ref"]
+    datas, noisemaps, masks = job["data"], job["noisemap"], job["masks"]
     names = job["names"]
+    n_before = job["n_before"]
 
     kwargs_moffat = result["kwargs_psf"]["kwargs_moffat"]
     # NaN is truthy: a frame whose WCS gave no scale stores FWHM in pixels
@@ -320,6 +321,31 @@ def _store_psf_result(user_config, regions_file, job, result,
     fwhm_arcsec = float(0.5 * (kwargs_moffat["fwhm_x"]
                                + kwargs_moffat["fwhm_y"]) * pixel_scale)
     loss_history = result["adabelief_extra_fields"]["loss_history"]
+
+    # diagnostic plot (psf_do_plots: 0 skips it)
+    if user_config.get("psf_do_plots", 1):
+        try:
+            from ..plotting.psf_plotting import plot_psf_diagnostic
+
+            plots_dir = (user_config["plots_dir"] / "PSFs"
+                         / str(combined_footprint_hash))
+            plots_dir.mkdir(exist_ok=True, parents=True)
+            frame_name = Path(frame["image_relpath"]).stem
+            seeing = frame["seeing_pixels"]
+            # NaN, and the estimator's -1.0 no-sources sentinel, print as 0
+            if seeing is None or not np.isfinite(seeing) or seeing <= 0:
+                seeing = 0.0
+            seeing = seeing * pixel_scale
+            text = (f"{frame_name}\nseeing estimation: {seeing:.02f}\n"
+                    f"seeing moffat: {fwhm_arcsec:.02f}")
+            plot_psf_diagnostic(
+                datas=datas, noisemaps=noisemaps,
+                residuals=result["residuals"],
+                full_psf=result["full_psf"], loss_curve=loss_history,
+                masks=masks, names=names, diagnostic_text=text,
+                save_path=plots_dir / f"{frame['id']}_{frame_name}.jpg")
+        except Exception as e:
+            logger.warning(f"PSF diagnostic plot failed: {e}")
 
     with _REGIONS_IO_LOCK, h5py.File(regions_file, "r+") as f:
         frame_group = f[frame["image_relpath"]]
@@ -350,5 +376,5 @@ def _store_psf_result(user_config, regions_file, job, result,
         is_select=False)
     logger.info(
         f"Frame {frame['id']}: PSF {psf_ref} built "
-        f"({job['n_before']}->{len(names)} stars, chi2 "
+        f"({n_before}->{len(datas)} stars, chi2 "
         f"{result['chi2']:.02f}).")

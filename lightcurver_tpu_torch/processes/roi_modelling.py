@@ -16,10 +16,12 @@ checkpointed mid-fit and resumable), and polish the fluxes with the exact
 GLS solve. ``xs``/``ys`` arrive in stamp pixel coordinates, as the task
 holds them after ``world_to_pixel``.
 
-Left out of the task: the HTML light curve and the diagnostic JPEG
-(``plotting/``, ROADMAP.md queue 1 item 8) and the epoch mesh over several
-devices (queue 1 item 6); it logs a line for each. h5py and pandas are
-imported by the task, so the module imports on a machine without them.
+The task also writes the per-night HTML light curve beside the CSVs and
+the diagnostic JPEG under ``plots/pixel_modelling/``, as JAX's does. Left
+out of the task: the epoch mesh over several devices (ROADMAP.md queue 1
+item 3); it logs a line saying so. h5py, pandas and matplotlib are
+imported by the task and the plotting package, so the module imports on a
+machine without them.
 
 Numbers: fit times quoted for this module in PERF.md were taken on an
 NVIDIA H100 and carry the card's name and power limit; no TPU figure
@@ -29,6 +31,7 @@ applies here.
 import json
 import logging
 from copy import deepcopy
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -535,7 +538,7 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
         logger.warning("No background regularization params in config: "
                        "using defaults.")
     logger.info("Fitting on one device: the epoch mesh over several "
-                "devices is not ported (ROADMAP.md queue 1 item 6).")
+                "devices is not ported (ROADMAP.md queue 1 item 3).")
 
     # mid-fit checkpointing of stage 2, keyed by the footprint hash and
     # opt-in via deconv_checkpoint_every; fit_roi deletes the file on
@@ -576,8 +579,14 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
         out_dir / f"{footprint_hash}_{roi}_photometry_per_epoch.csv")
     per_night.to_csv(
         out_dir / f"{footprint_hash}_{roi}_photometry_per_night.csv")
-    logger.info("No HTML light curve or diagnostic plot: plotting/ is not "
-                "ported (ROADMAP.md queue 1 item 8).")
+    try:
+        from ..plotting.html_visualisation import generate_lightcurve_html
+
+        generate_lightcurve_html(
+            per_night,
+            out_dir / f"{footprint_hash}_{roi}_photometry_per_night.html")
+    except Exception as e:
+        logger.warning(f"HTML light-curve export failed: {e}")
 
     # diagnostic stacks, on the scaled data as the fit saw it
     data_scaled = np.asarray(data, dtype=np.float32) / scale
@@ -606,6 +615,24 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
                scale * high_res.cpu().numpy(), header_highres)
     write_fits(out_dir / f"{footprint_hash}_{roi}_background.fits",
                scale * background_only.cpu().numpy(), header_highres)
+
+    try:
+        from ..plotting.joint_modelling_plotting import \
+            plot_joint_modelling_diagnostic
+
+        plot_dir = (user_config["plots_dir"] / "pixel_modelling"
+                    / str(footprint_hash))
+        plot_dir.mkdir(exist_ok=True, parents=True)
+        time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+        plot_file = plot_dir / f"{time_now}_joint_modelling_roi_{roi}.jpg"
+        plot_joint_modelling_diagnostic(
+            datas=data_scaled, noisemaps=noise_scaled,
+            residuals=fit["residuals"] / scale,
+            chi2_per_frame=np.array(per_epoch["reduced_chi2"]),
+            loss_curve=fit["loss_history_stage2"], save_path=plot_file,
+            starlet_background=background_only.cpu().numpy())
+    except Exception as e:
+        logger.warning(f"ROI modelling plot failed: {e}")
 
     rld = relative_loss_differential(fit["loss_history_stage2"])
     logger.info("Finished modelling the ROI. Global reduced chi2: "

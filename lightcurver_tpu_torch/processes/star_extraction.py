@@ -10,8 +10,6 @@ when it can build it, and through ``_segment`` and ``_moments``
 otherwise; its tests hold the two to the same catalog.
 """
 
-import logging
-
 import numpy as np
 from scipy import ndimage
 
@@ -105,8 +103,8 @@ def extract_stars(image_background_subtracted, variance_map,
                   detection_threshold=3, min_area=10, debug_plot_path=None):
     """Detect point-ish sources; returns a DataFrame, brightest first.
 
-    ``debug_plot_path`` is accepted as the JAX package's, but no plot is
-    made: plotting/ is not ported.
+    With ``debug_plot_path`` the image is plotted there with the sources
+    circled.
     """
     import pandas as pd
 
@@ -119,8 +117,11 @@ def extract_stars(image_background_subtracted, variance_map,
     sources = postprocess_detections(sources)
 
     if debug_plot_path is not None:
-        logging.getLogger("lightcurver.source_extraction").info(
-            f"plotting/ is not ported: no source plot at {debug_plot_path}.")
+        from ..plotting.sources_plotting import plot_sources
+
+        debug_plot_path.parent.mkdir(exist_ok=True, parents=True)
+        plot_sources(sources=sources, image=image,
+                     save_path=debug_plot_path)
     return sources
 
 

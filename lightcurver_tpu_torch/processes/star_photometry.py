@@ -10,15 +10,18 @@ pixel background per star. The stars are fitted in buckets of
 fit_stars_batched``, and the fluxes go to the ``star_flux_in_frame``
 table as the JAX task writes them.
 
-Left out: the per-star diagnostic plot (``plotting/``, ROADMAP.md queue 1
-item 4), with a logged line; the single-star
-``do_one_star_forward_modelling``, which no task calls (queue 1 item 8).
+Each star's diagnostic plot goes to ``plots/star_modelling/<footprint
+hash>/<time>_joint_modelling_star_<name>.jpg``, as JAX's task writes it.
+
+Left out: the single-star ``do_one_star_forward_modelling``, which no
+task calls (ROADMAP.md queue 1 item 4).
 A negative ``star_fit_batch_size`` raises a ``ValueError`` here (the JAX
 task fits nothing and reports success). h5py and pandas are imported by
-the functions that use them.
+the functions that use them, and matplotlib by the plotting package.
 """
 
 import logging
+from datetime import datetime
 from time import time
 
 import numpy as np
@@ -175,6 +178,7 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
         stars_to_exclude=user_config["stars_to_exclude_norm"])
     logger.info(f"PSF photometry for {len(stars)} stars.")
     only_fluxless = not user_config["redo_star_photometry"]
+    time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
 
     # the stars' jobs (host IO), from one read-only open
     jobs = []
@@ -203,8 +207,6 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
                          "noisemap": noisemap, "psf": psf})
     if not jobs:
         return
-    logger.info("No star modelling plots: plotting/ is not ported "
-                "(ROADMAP.md queue 1 item 4).")
 
     t0 = time()
     batch_size = batch_size or len(jobs)
@@ -218,7 +220,7 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
                     f"{time() - t0b:.1f}s after dispatch.")
         for job, result in zip(bucket, results):
             _store_star_result(user_config, job, result, footprint_hash,
-                               logger)
+                               time_now, logger)
 
     fit = dict(device=device, irfft_backend=irfft_backend)
     if checkpointing or len(buckets) == 1:
@@ -338,9 +340,34 @@ def _fit_star_jobs_batched(user_config, jobs, *, device="cuda",
                             irfft_backend=irfft_backend), jobs)
 
 
-def _store_star_result(user_config, job, result, footprint_hash, logger):
-    """The DB upsert for one fitted star."""
+def _store_star_result(user_config, job, result, footprint_hash,
+                       time_now, logger):
+    """Plots and the DB upsert for one fitted star."""
     star, frames = job["star"], job["frames"]
+    data, noisemap = job["data"], job["noisemap"]
+
+    try:
+        from ..plotting.joint_modelling_plotting import \
+            plot_joint_modelling_diagnostic
+
+        plot_dir = (user_config["plots_dir"] / "star_modelling"
+                    / str(footprint_hash))
+        plot_dir.mkdir(exist_ok=True, parents=True)
+        kwargs_plot = {
+            "datas": data, "noisemaps": noisemap,
+            "residuals": result["residuals"],
+            "chi2_per_frame": result["chi2_per_frame"],
+            "loss_curve": result["loss_curve"],
+            "save_path": plot_dir / (f"{time_now}_joint_modelling_"
+                                     f"star_{star['name']}.jpg"),
+        }
+        if user_config["star_photometry_starlet_global_background"]:
+            kwargs_plot["starlet_background"] = \
+                result["starlet_background"]
+        plot_joint_modelling_diagnostic(**kwargs_plot)
+    except Exception as e:
+        logger.warning(f"Star modelling plot failed: {e}")
+
     rld = warn_if_unconverged(result["loss_curve"], logger,
                               f"Star {star['name']} joint fit",
                               "star_deconv_n_iter")

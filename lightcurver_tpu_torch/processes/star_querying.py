@@ -3,11 +3,12 @@ frame assignment: a copy of ``lightcurver_tpu/processes/star_querying.py``.
 
 Three selection strategies (common_footprint_stars, stars_per_frame,
 ROI_disk), the config's quality cuts, the minimum-count check, names by
-ascending distance to the ROI, and the stars_in_frames rows. pandas is
-imported when the task runs; plotting/ is not ported, so the footprint
-plot is not made.
+ascending distance to the ROI, the stars_in_frames rows, and the
+diagnostic plot of the footprints with the stars. pandas is imported when
+the task runs, matplotlib when the plot is made.
 """
 
+import json
 import logging
 
 import numpy as np
@@ -126,5 +127,24 @@ def query_gaia_stars():
     logger.info("Calculating which star is in which frame.")
     populate_stars_in_frames()
 
-    logger.info("plotting/ is not ported: no footprint plot with the "
-                "Gaia stars.")
+    import pandas as pd
+
+    # diagnostic plot: frame footprints + star positions
+    rows = execute_sqlite_query(
+        """SELECT frames.id, footprints.polygon FROM footprints
+           JOIN frames ON footprints.frame_id = frames.id
+           WHERE frames.eliminated != 1""")
+    polygons = [np.array(json.loads(r[1])) for r in rows]
+    roi_row = pd.DataFrame([{"name": "roi",
+                             "ra": user_config["ROI_ra_deg"],
+                             "dec": user_config["ROI_dec_deg"]}])
+    plot_stars = pd.concat([stars, roi_row], ignore_index=True)
+    save_path = user_config["plots_dir"] / "footprints_with_gaia_stars.jpg"
+    try:
+        from ..plotting.sources_plotting import plot_footprints_with_stars
+
+        plot_footprints_with_stars(footprint_arrays=polygons,
+                                   stars=plot_stars, save_path=save_path)
+        logger.info(f"Footprint/star plot saved at {save_path}.")
+    except Exception as e:  # plots must never kill the pipeline
+        logger.warning(f"Could not produce footprint plot: {e}")

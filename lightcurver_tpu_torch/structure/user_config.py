@@ -1,10 +1,13 @@
-"""User-config loading: a copy of ``get_user_config`` of
+"""User-config loading and the key check: a copy of ``get_user_config``
+and ``compare_config_with_pipeline_delivered_one`` of
 ``lightcurver_tpu/structure/user_config.py``.
 
 One YAML file, addressed by the ``LIGHTCURVER_CONFIG`` environment
 variable and loaded fresh by every task, with the same derived keys and
-defaults as the JAX package's. PyYAML is imported when a config is read,
-so the module imports on a machine without it.
+defaults as the JAX package's. Its keys are checked against the port's
+copy of the example config (``pipeline/example_config_file/config.yaml``).
+PyYAML is imported when a config is read, so the module imports on a
+machine without it.
 """
 
 import os
@@ -96,3 +99,26 @@ def get_user_config():
         "psf_dft_pad", max(16, 4 * int(config.get("subsampling_factor", 2))))
     config["checkpoints_dir"] = workdir / "checkpoints"
     return config
+
+
+def compare_config_with_pipeline_delivered_one():
+    """Set-difference of user config keys vs the shipped example config."""
+    import yaml
+
+    if "LIGHTCURVER_CONFIG" not in os.environ:
+        raise NoConfigFilePathInEnvironment
+    with open(os.environ["LIGHTCURVER_CONFIG"]) as f:
+        user = yaml.safe_load(f)
+
+    template_path = (Path(__file__).parent.parent / "pipeline"
+                     / "example_config_file" / "config.yaml")
+    with open(template_path) as f:
+        template = yaml.safe_load(f)
+
+    user_keys, template_keys = set(user), set(template)
+    missing = template_keys - user_keys
+    return {
+        "extra_keys_in_user_config": user_keys - template_keys,
+        "extra_keys_in_pipeline_config": missing,
+        "pipeline_extra_keys_values": {k: template[k] for k in missing},
+    }

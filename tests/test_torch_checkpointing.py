@@ -35,6 +35,19 @@ from lightcurver_tpu_torch.utilities.synthetic import star_photometry_scene
 N_ITER, EVERY, LR = 120, 40, 1e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """As in the calibration chain's file: one intra-op thread beside the
+    suite's other workers, which would otherwise all spin threads on the
+    same cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class Killed(Exception):
     """The simulated kill; only this class is caught."""
 

@@ -50,6 +50,19 @@ TOL = 1e-5
 RENDERS = [("fft", None), ("matmul", None), ("matmul", 16)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """As in the calibration chain's file: one intra-op thread beside the
+    suite's other workers, which would otherwise all spin threads on the
+    same cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, tol=TOL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
