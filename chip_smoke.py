@@ -150,13 +150,38 @@ prints no result:
    star fluxes, normalization and zeropoints, the ROI products, an
    incremental rerun, the adapt-WCS fault, the field-distortion redo);
    without h5py one line names the task it stopped before and why.
+14. the sharded fits of ``parallel/`` (torch.distributed):
+14a. one rank, in this process: ``initialize_distributed`` at world 1
+   (NCCL), then ``fit_roi(..., irfft_backend="matmul",
+   mesh=epoch_mesh())`` on phase 5b's ROI-100 scene at the shipped
+   recipe, through the sharded loss (the all-reduce of the loss and the
+   gradient, W broadcast from rank 0): fluxes within 1 mmag of phase 5b
+   and reduced chi2 within 1 %, whether they are bit-equal (expected),
+   the wall and the K1 and K2 launches;
+14b. two ranks on the one card: ``python3 chip_smoke.py --shard-rank R
+   DIR`` twice, with torchrun's variables, talking over gloo on CUDA
+   tensors (NCCL refuses two ranks on one device), each running four
+   fits with ``mesh="auto"``: phase 5's ROI-100 at full width and
+   100 + 1000 iterations (``SHARD_ROI_BUDGET`` says why; 50 epochs a
+   rank, matmul), PSF-16 at 100 + 300 iterations (8 frames a rank, matmul
+   at ``dft_pad`` 16), the STAR-32 bucket with the starlet background at
+   300 iterations on the 1-D batch mesh (16 stars a rank), and its first
+   star alone on the (1, 2) mesh (50 epochs a rank). Each is held against
+   the same fit unsharded here: ROI-100 and the stars with fluxes within
+   1 mmag and reduced chi2 within 1 %, the PSFs against the unsharded fit
+   of each rank's 8 frames (within 1e-2 of a frame's peak, chi2 within
+   1 %), with the 16-frame fit and its rounding floor printed beside
+   (``check_shard_ranks`` says why); the two ranks' results must be equal
+   to the bit, their launches exact, and each rank's K1 and K2 launches
+   come back on a JSON line; a rank that fails or outlives its timeout
+   fails the phase.
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
 its launches over every run of the main path (phases 5, 5b, 7, 7b, 9 to
-9d, 10, 10b, 11's pipelined runs and 13's pipeline run), and, last, the
-device line. There is no CPU path: without a card the script fails.
+9d, 10, 10b, 11's pipelined runs, 13's pipeline run, 14a and both ranks
+of 14b), and, last, the device line. There is no CPU path: without a card the script fails.
 """
 
 import json
@@ -1685,6 +1710,339 @@ def phase_pipeline_rest(np, torch, starlet_cuda, k2, card, root, config,
     return launches
 
 
+# ROI-100 (phase 5's scene, noise 0.3) is held to 1 mmag against its
+# unsharded fit at 100 + 1000 iterations, where that fit's own rounding
+# floor (its spread under one-ulp changes of the data) lies below the bar;
+# at 50 + 300 iterations or at the shipped recipe the floor reaches it
+# (PERF.md section 6; tools/torch_shard_probe.py measures it)
+SHARD_ROI_BUDGET = dict(roi_deconv_translations_iters=100,
+                        roi_deconv_all_iters=1000)
+SHARD_PSF_BUDGET = dict(n_iter_analytic=100, n_iter_adabelief=300)
+SHARD_STAR_ITERS = 300
+# the scenes' sizes: ROI (epochs, px, noise), PSF (frames, stars, px),
+# stars (stars, epochs, px)
+SHARD_SCENES = dict(roi=(100, 64, 0.3), psf=(16, 8, 64),
+                    stars=(32, 100, 24))
+SHARD_TIMEOUT_S = 420
+
+
+def launch_counters(starlet_cuda, k2):
+    """``counters(reset=False)``: with ``reset`` sets K1's and K2's launch
+    counts to 0, else reads (K1 forward, K1 adjoint, K2 forward, K2
+    backward, K2 forward with h, K2 backward with h)."""
+    def counters(reset=False):
+        if reset:
+            starlet_cuda.launches.reset()
+            k2.reset()
+            return None
+        return (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint,
+                k2.forward, k2.backward, k2.forward_h, k2.backward_h)
+
+    return counters
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def shard_fits(np, torch, mesh, counters, names, perturb=None):
+    """The fits ``names`` of phase 14b on ``mesh`` ("auto": over the ranks
+    of this world; None: unsharded): ``{name: (result, wall, launches)}``.
+    "roi" is ROI-100 (matmul, ``SHARD_ROI_BUDGET``); "psf" PSF-16,
+    "psf/R/N" the unsharded fit of the frames rank R of N fits; "stars"
+    STAR-32 with the starlet background, "star1" its first star.
+    ``perturb`` multiplies the PSF frames (a rounding floor)."""
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
+    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
+    from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
+                                                               fit_roi)
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, star_photometry_scene)
+
+    n_epochs, n_pix, noise = SHARD_SCENES["roi"]
+    scene = make_roi_scene(n_epochs=n_epochs, n_pix=n_pix, s=2, n_sources=4,
+                           seed=7, noise_sigma=noise)
+    frames = psf_bench_frames(*SHARD_SCENES["psf"])
+    if perturb is not None:
+        frames = (frames[0] * np.float32(perturb), frames[1])
+    sc = star_photometry_scene(*SHARD_SCENES["stars"], 2)
+
+    def stars(n):
+        return fit_stars_batched(
+            sc["data"][:n], sc["sigma"][:n], sc["psf"][:n], sc["s"],
+            n_iter=SHARD_STAR_ITERS, starlet_global_background=True,
+            irfft_backend="matmul", mesh=mesh, device="cuda")
+
+    def psf(rank=0, n_ranks=1):
+        share = len(frames[0]) // n_ranks
+        part = slice(rank * share, (rank + 1) * share)
+        return build_psf_batched(
+            frames[0][part], frames[1][part], 2, **SHARD_PSF_BUDGET,
+            irfft_backend="matmul", dft_pad=16, mesh=mesh, device="cuda")
+
+    runs = {
+        "roi": lambda: fit_scene(fit_roi, {**ROI_CONFIG, **SHARD_ROI_BUDGET},
+                                 scene, "cuda", "matmul", mesh=mesh),
+        "psf": psf,
+        "stars": lambda: stars(len(sc["data"])),
+        "star1": lambda: stars(1),
+    }
+    for name in names:
+        if name.startswith("psf/"):
+            rank, n_ranks = map(int, name.split("/")[1:])
+            runs[name] = lambda r=rank, n=n_ranks: psf(r, n)
+
+    out = {}
+    for name in names:
+        run = runs[name]
+        counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        out[name] = (result, time.perf_counter() - t0, counters())
+    return out
+
+
+def shard_arrays(np, fits):
+    """The arrays of ``shard_fits``' results, flat, for an npz."""
+    keys = {"roi": ("fluxes", "flux_errors", "reduced_chi2", "W"),
+            "psf": ("narrow_psf", "full_psf", "chi2"),
+            "stars": ("fluxes", "fluxes_uncertainties", "chi2"),
+            "star1": ("fluxes", "fluxes_uncertainties", "chi2")}
+    return {f"{name}.{key}": np.asarray(fits[name][0][key])
+            for name in fits for key in keys[name.split("/")[0]]}
+
+
+def shard_rank(rank, work):
+    """One rank of phase 14b, run as ``chip_smoke.py --shard-rank``:
+    bootstrap from torchrun's variables, run ``shard_fits`` on
+    ``mesh="auto"``, write the results to ``work/rank{rank}.npz`` and
+    print the launches and walls on one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from lightcurver_tpu_torch.ops import fused_render_cuda, starlet_cuda
+    from lightcurver_tpu_torch.parallel.distributed import (
+        backend_for, initialize_distributed)
+
+    initialize_distributed()
+    world = int(os.environ["WORLD_SIZE"])
+    check(dist.get_rank() == rank and dist.get_world_size() == world,
+          f"rank {dist.get_rank()} of {dist.get_world_size()}, expected "
+          f"{rank} of {world}")
+    # two ranks on one card need gloo; a card each, NCCL
+    want = backend_for(world)
+    check(dist.get_backend() == want, f"backend {dist.get_backend()}, "
+          f"{want} expected")
+    counters = launch_counters(starlet_cuda, fused_render_cuda.launches)
+    fits = shard_fits(np, torch, "auto", counters,
+                      ("roi", "psf", "stars", "star1"))
+    np.savez(Path(work) / f"rank{rank}.npz", **shard_arrays(np, fits))
+    print("SHARD " + json.dumps({
+        "rank": rank, "walls": {k: v[1] for k, v in fits.items()},
+        "launches": {k: v[2] for k, v in fits.items()}}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_shard_one(np, torch, fit_roi, scene, ref, counters, card):
+    """14a: ROI-100 through the sharded path at world 1 (NCCL), against
+    phase 5b's fit; returns the launches."""
+    import torch.distributed as dist
+    from lightcurver_tpu_torch.parallel.distributed import \
+        initialize_distributed
+    from lightcurver_tpu_torch.parallel.mesh import epoch_mesh
+    from lightcurver_tpu_torch.processes.roi_modelling import ROI_CONFIG
+
+    initialize_distributed(f"localhost:{free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"world 1 on a card: backend "
+              f"{dist.get_backend()}, NCCL expected")
+        counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_scene(fit_roi, ROI_CONFIG, scene, "cuda", "matmul",
+                        mesh=epoch_mesh())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs = counters()
+    finally:
+        dist.destroy_process_group()
+    check_fit(np, out)
+    dmag = np.abs(2.5 * np.log10(out["fluxes"] / ref["fluxes"]))
+    dchi2 = np.abs(out["reduced_chi2"] / ref["reduced_chi2"] - 1)
+    bits = same_bits(np, out, ref, ("fluxes", "flux_errors", "reduced_chi2",
+                                    "W"))
+    say("14a", f"ROI-100 fit_roi matmul on an epoch mesh of one rank (NCCL, "
+        f"card {card}): {wall:.3f} s wall; K1 launches forward {runs[0]}, "
+        f"adjoint {runs[1]}; K2 forward {runs[2]}, backward {runs[3]} (with "
+        f"h {runs[4]}, {runs[5]}); vs phase 5b: max |dmag| "
+        f"{dmag.max() * 1e3:.4f} mmag, max |dchi2|/chi2 {dchi2.max():.2e}, "
+        f"bit-equal {bits}")
+    check(dmag.max() <= 1e-3, "14a: fluxes differ from phase 5b by > 1 mmag")
+    check(dchi2.max() <= 0.01, "14a: reduced chi2 differs from phase 5b by "
+          "> 1 %")
+    check(min(runs[4:6]) >= 2000, "14a: stage 2 did not run through K2 "
+          "every iteration")
+    return runs[:4]
+
+
+def shard_expected(name, rank):
+    """The exact (K1 fwd, K1 adj, K2 fwd, K2 bwd) launches of a 14b fit
+    on ``rank`` (None: not gated), from its budget: K2 renders the
+    rank's epochs once each way an evaluation; K1 runs on the group's
+    rank 0 only for the ROI's and the star's own l1 term and noise
+    weights, on every rank for the frames and stars of its share."""
+    n = SHARD_STAR_ITERS
+    if name == "psf":
+        return (SHARD_PSF_BUDGET["n_iter_adabelief"],) * 2 + (0, 0)
+    if name == "stars":
+        return (n + 1, n, n, n)
+    if name == "star1":
+        return ((n + 1, n) if rank == 0 else (0, 0)) + (n, n)
+    return None
+
+
+def phase_shard_two(np, torch, counters, work, card):
+    """14b: two ranks on the one card against the unsharded fits here;
+    returns the launches of both ranks' fits, summed."""
+    reports, wall = run_shard_ranks(work)
+    return check_shard_ranks(np, torch, counters, work, reports, wall, card)
+
+
+def run_shard_ranks(work, n_ranks=2):
+    """Start the ranks of phase 14b (two on the card; ``n_ranks`` on as
+    many cards, ``tools/torch_shard_probe.py --ranks``) and wait for them
+    (killed at ``SHARD_TIMEOUT_S``); returns (their JSON reports, the
+    wall)."""
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob("rank*.npz"):
+        old.unlink()
+    port = free_port()
+    env = {**os.environ, "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "WORLD_SIZE": str(n_ranks),
+           "LOCAL_WORLD_SIZE": str(n_ranks)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--shard-rank",
+         str(rank), str(work)],
+        env={**env, "RANK": str(rank), "LOCAL_RANK": str(rank)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(HERE)) for rank in range(n_ranks)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(
+                timeout=max(SHARD_TIMEOUT_S - (time.perf_counter() - t0),
+                            1))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank, (proc, text) in enumerate(zip(procs, outputs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("SHARD ")]
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"14b: rank {rank} exited {proc.returncode}:\n{text[-3000:]}")
+        reports.append(json.loads(lines[0][len("SHARD "):]))
+    return reports, wall
+
+
+def check_shard_ranks(np, torch, counters, work, reports, wall, card):
+    """Phase 14b's gates on the ranks' results and launches; returns the
+    launches of the ranks' fits, summed."""
+    n_ranks = len(reports)
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(n_ranks)]
+    for other in ranks[1:]:
+        for key in ranks[0]:
+            check(np.array_equal(ranks[0][key], other[key]),
+                  f"14b: the ranks' {key} differ")
+    shares = [f"psf/{r}/{n_ranks}" for r in range(n_ranks)]
+    refs = shard_fits(np, torch, None, counters,
+                      ("roi", "psf", *shares, "stars", "star1"))
+    ref = shard_arrays(np, refs)
+    res = ranks[0]
+    for name in ("roi", "stars", "star1"):
+        flux, chi2 = ("fluxes", "reduced_chi2") if name == "roi" \
+            else ("fluxes", "chi2")
+        dmag = np.abs(2.5 * np.log10(res[f"{name}.{flux}"]
+                                     / ref[f"{name}.{flux}"]))
+        dchi2 = np.abs(res[f"{name}.{chi2}"] / ref[f"{name}.{chi2}"] - 1)
+        say("14b", f"{name}: {n_ranks} ranks vs unsharded: max |dmag| "
+            f"{dmag.max() * 1e3:.4f} mmag, median "
+            f"{np.median(dmag) * 1e3:.4f} mmag, max |dchi2|/chi2 "
+            f"{dchi2.max():.2e}; bit-equal "
+            f"{np.array_equal(res[f'{name}.{flux}'], ref[f'{name}.{flux}'])}")
+        check(dmag.max() <= 1e-3, f"14b {name}: fluxes differ by > 1 mmag")
+        check(dchi2.max() <= 0.01, f"14b {name}: chi2 differs by > 1 %")
+
+    # PSF-16 is chaotic in float32 at this budget: the card's kernels run
+    # a batch of 8 frames with other bits than one of 16, and a 1e-7
+    # change of the data moves a frame's PSF by more than its peak (the
+    # floor printed below). So the ranks are held against the unsharded
+    # fit of the same frames in the same batches (each rank's share),
+    # which isolates what the sharding does: pad, split, fit, gather and
+    # strip; the 16-frame fit is printed beside its own floor.
+    def psf_gap(a, b, key):
+        peak = np.abs(b[key]).max(axis=(1, 2))
+        return (np.abs(a[key] - b[key]).max(axis=(1, 2)) / peak).max()
+
+    whole = {k: ref[f"psf.{k}"] for k in ("narrow_psf", "full_psf", "chi2")}
+    same = {k: np.concatenate([ref[f"{sh}.{k}"] for sh in shares])
+            for k in whole}
+    got = {k: res[f"psf.{k}"] for k in whole}
+    floor = shard_fits(np, torch, None, counters, ("psf",),
+                       perturb=1 + 1e-7)["psf"][0]
+    for key in ("narrow_psf", "full_psf"):
+        gap = psf_gap(got, same, key)
+        say("14b", f"psf: {n_ranks} ranks vs the unsharded fit of each "
+            f"rank's frames: max |d{key}| / its frame's peak {gap:.2e}, "
+            f"bit-equal {np.array_equal(got[key], same[key])}; vs the "
+            f"{len(whole['chi2'])}-frame fit {psf_gap(got, whole, key):.2e}, "
+            f"whose own "
+            f"rounding floor (data x (1 + 1e-7)) is "
+            f"{psf_gap(floor, whole, key):.2e}")
+        check(gap <= 1e-2, f"14b psf: {key} differs by > 1e-2 of its peak")
+    dchi2 = np.abs(got["chi2"] / same["chi2"] - 1).max()
+    say("14b", f"psf: max |dchi2|/chi2 {dchi2:.2e} (vs the whole fit "
+        f"{np.abs(got['chi2'] / whole['chi2'] - 1).max():.2e})")
+    check(dchi2 <= 0.01, "14b psf: chi2 differs by > 1 %")
+    total = [0, 0, 0, 0]
+    for report in reports:
+        rank = report["rank"]
+        for name, runs in report["launches"].items():
+            say("14b", f"rank {rank} {name}: {report['walls'][name]:.3f} s "
+                f"wall (unsharded {refs[name][1]:.3f} s; card {card}); "
+                f"K1 launches forward {runs[0]}, adjoint {runs[1]}; K2 "
+                f"forward {runs[2]}, backward {runs[3]}")
+            want = shard_expected(name, rank)
+            check(want is None or tuple(runs[:4]) == want,
+                  f"14b rank {rank} {name}: launches {runs[:4]}, {want} "
+                  "expected")
+            total = [t + r for t, r in zip(total, runs[:4])]
+        roi = report["launches"]["roi"]
+        n = SHARD_ROI_BUDGET["roi_deconv_all_iters"]
+        check(roi[4] == roi[5] == n and min(roi[2:4]) > n,
+              f"14b rank {rank} roi: K2 launches {roi[2:]}: stage 2 one each "
+              "way an iteration, stage 1 some, expected")
+        # the l1 term and the noise weights are rank 0's
+        want = (n + 1, n) if rank == 0 else (0, 0)
+        check(tuple(roi[:2]) == want, f"14b rank {rank} roi: K1 launches "
+              f"{roi[:2]}, {want} expected")
+    say("14b", f"{len(ranks)} ranks in {wall:.1f} s, process start "
+        "included; the ranks' results equal to the bit")
+    return total
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -1867,14 +2225,7 @@ def main():
                      (True, "fft", "9c"), (True, "matmul", "9d"))]
     star_runs = [runs for runs, _, _ in star_fits]
 
-    def counters(reset=False):
-        if reset:
-            starlet_cuda.launches.reset()
-            k2.reset()
-            return None
-        return (starlet_cuda.launches.forward, starlet_cuda.launches.adjoint,
-                k2.forward, k2.backward, k2.forward_h, k2.backward_h)
-
+    counters = launch_counters(starlet_cuda, k2)
     work = HERE / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     resumed_runs = [
@@ -1895,12 +2246,19 @@ def main():
                         stars, counters, star_fits[3][1:], work, card)]
     phase_front(np, card)
     pipeline_run = phase_pipeline(np, torch, starlet_cuda, k2, card, work)
+    # NCCL bootstraps over this host's loopback: one host, one card
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    shard_runs = [phase_shard_one(np, torch, fit_roi, scene, out_mm,
+                                  counters, card),
+                  phase_shard_two(np, torch, counters, work / "shard", card)]
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,
-    # the PSF and star tasks' pipelined buckets, and the pipeline run of
-    # phase 13 from stamp_extraction (none where h5py is missing)
-    main_runs = star_runs + resumed_runs + task_runs + [pipeline_run]
+    # the PSF and star tasks' pipelined buckets, the pipeline run of
+    # phase 13 from stamp_extraction (none where h5py is missing), and
+    # the sharded fits of phase 14 (both ranks of 14b)
+    main_runs = star_runs + resumed_runs + task_runs + [pipeline_run] \
+        + shard_runs
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \
@@ -1943,4 +2301,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -4,8 +4,8 @@ and the star-batched photometry in PyTorch, for CUDA, with the whole
 
 A port of ``lightcurver_tpu`` (JAX) to PyTorch. The layout mirrors the
 JAX package (``core/``, ``core/deconv/``, ``core/psf/``, ``ops/``,
-``pipeline/``, ``processes/``, ``io/``, ``structure/``, ``utilities/``,
-``plotting/``, ``scripts/``);
+``parallel/``, ``pipeline/``, ``processes/``, ``io/``, ``structure/``,
+``utilities/``, ``plotting/``, ``scripts/``);
 ``csrc/`` holds the hand-written CUDA kernels. Each module names its JAX
 counterpart in its docstring, and the tests hold every module against
 that counterpart on the CPU. The host modules (``io/``, ``structure/``,
@@ -65,7 +65,12 @@ Entry points, each on the card unless the caller passes ``device="cpu"``:
 - :func:`lightcurver_tpu_torch.core.psf.batched.build_psf_batched`, the
   narrow PSFs of many frames at once;
 - :func:`lightcurver_tpu_torch.core.deconv.batched.fit_stars_batched`, the
-  joint photometry of a bucket of stars at once.
+  joint photometry of a bucket of stars at once;
+- the three fits above over several ranks (one process per card, under
+  ``torchrun``, after
+  :func:`lightcurver_tpu_torch.parallel.distributed.initialize_distributed`):
+  their ``mesh="auto"`` shards ROI epochs, PSF frames and stars
+  (``parallel/``).
 """
 
 __version__ = "0.1.0"

@@ -27,14 +27,23 @@ render is cuFFT, or the rank-1 modulated inverse on "matmul".
 With ``checkpoint_path`` the AdaBelief loop runs in segments and writes
 the per-star carry to disk after each (JAX's ``_fit_stars_checkpointed``,
 through ``core/optimize.py``'s checkpoint writer and reader); a killed fit
-resumes from its last segment. Not ported here: multi-GPU meshes
-(``mesh``; ROADMAP.md queue 1 item 3).
+resumes from its last segment.
+
+Under several ranks (``parallel/``) the stars are split over a ``batch``
+mesh, each rank fitting its own; with fewer stars than ranks a
+(``batch``, ``epoch``) mesh also splits each star's epochs: in an epoch
+group every rank holds its stars' whole parameters, renders its epochs
+(K2 with ``n_groups`` = its stars), rank 0 of the group adds each star's
+starlet term once, and the per-star losses and the gradient are
+all-reduced over the group. The results are gathered to every rank and
+the padded stars and epochs stripped.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .loss import _abs
+from .loss import _abs, sum_over_group
 from .model import DeconvModel
 from ..fisher import _diag_fisher, linear_flux_solve
 from ..noise import epoch_nanmedian, mc_starlet_noise
@@ -43,6 +52,12 @@ from ..params import kwargs_to_numpy, merge_free
 from ..starlet import n_starlet_scales
 from ...ops import check_irfft_backend, dft, enforce_fp32
 from ...ops.starlet_op import starlet_transform
+from ...parallel.batch import (BATCH_AXIS, CheckpointShare, auto_fit_mesh,
+                               gather_to_host, pad_epoch_axis,
+                               shard_star_fit_arrays, strip_batch,
+                               strip_epoch_axis)
+from ...parallel.deconv import PER_EPOCH_KEYS, epoch_range
+from ...parallel.mesh import EPOCH_AXIS, axis_size, resolve_mesh
 
 # result keys whose leading axis after the star axis is the epoch axis
 EPOCH_AXIS_RESULT_KEYS = frozenset({"fluxes", "fluxes_uncertainties",
@@ -75,12 +90,23 @@ def _model_kwargs(kw):
                               "mean": kb["mean"].reshape(-1)}}
 
 
+def _noise_draws(n_stars, n_pix, seed):
+    """The Monte-Carlo draws of the noise weights, (S, K, n, n), from one
+    seeded CPU generator (a star's draws do not depend on the rank that
+    fits it)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn((n_stars, NOISE_SAMPLES, n_pix, n_pix), generator=gen)
+
+
 def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
                    starlet_global_background, irfft_backend, seed,
-                   noise_weights):
+                   noise_weights, draws=None, group=None):
     """Set-up of the S fits: ``(model, free0, lower, upper, consts,
     scale)``. Tensors in (data, noisemap (S, N, n, n), psf (S, N, mp, mp),
-    sanitised, on one device), JAX's ``_prepare_one_star`` under vmap."""
+    sanitised, on one device), JAX's ``_prepare_one_star`` under vmap.
+    ``draws``: these stars' noise draws (default: :func:`_noise_draws` of
+    ``seed``); with a process ``group`` its rank 0 computes the noise
+    weights and broadcasts them."""
     device = data.device
     n_stars, n_epochs, n_pix = data.shape[:3]
     m = n_pix * s
@@ -139,20 +165,26 @@ def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
         else torch.zeros((), device=device),
     }
     if starlet_global_background:
-        if noise_weights is None:
+        if noise_weights is None and group is not None \
+                and dist.get_rank(group) != 0:
+            noise_weights = torch.empty(
+                (n_stars, n_starlet_scales(m) + 1, m, m), device=device)
+            dist.broadcast(noise_weights, group=group, group_src=0)
+        elif noise_weights is None:
             # statistics over the real epochs only
             sig_real = torch.where(real_epoch[:, :, None, None], sig,
                                    torch.full_like(sig, float("nan")))
             w = real_epoch.to(torch.float32)[:, :, None, None]
             mean_ps_hat = (model.ps_hat.unflatten(0, (n_stars, n_epochs))
                            * w).sum(dim=1) / n_real[:, None, None]
-            gen = torch.Generator().manual_seed(int(seed))
-            draws = torch.randn((n_stars, NOISE_SAMPLES, n_pix, n_pix),
-                                generator=gen).to(device)
+            if draws is None:
+                draws = _noise_draws(n_stars, n_pix, seed)
             with torch.no_grad():
                 noise_weights = mc_starlet_noise(
                     epoch_nanmedian(sig_real, dim=1), mean_ps_hat, m, s,
-                    draws, mats)
+                    draws.to(device), mats)
+            if group is not None:
+                dist.broadcast(noise_weights, group=group, group_src=0)
         if not isinstance(noise_weights, torch.Tensor):
             noise_weights = np.array(noise_weights, dtype=np.float32)
         consts["W"] = torch.as_tensor(noise_weights, dtype=torch.float32,
@@ -166,20 +198,50 @@ def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
             bounds(np.inf, POSITION_BOUND), consts, scale)
 
 
-def _star_losses(model, consts, n_stars):
+def _epoch_share(model, consts, epochs):
+    """(model, consts) of epochs ``[start, stop)`` of every star: a rank's
+    share of the loss on a (batch, epoch) mesh. The model renders S x
+    (stop - start) epochs in S groups; the finalize keeps the whole."""
+    start, stop = epochs
+    local = model.epoch_slice(start, stop)
+    n_stars = model.n_groups
+
+    def cut(x):
+        return x.unflatten(0, (n_stars, -1))[:, start:stop].flatten(0, 1)
+
+    return local, {
+        **consts, "data": cut(consts["data"]),
+        "sigma_2": cut(consts["sigma_2"]),
+        "epoch_w": consts["epoch_w"][:, start:stop],
+        "render": local.matmul_consts() if consts["render"] is not None
+        else None}
+
+
+def _star_losses(model, consts, n_stars, epochs=None, group=None):
     """``loss_fn(free) -> (S,)``: per star 0.5 * sum(epoch_w chi2) and,
     with a free background, LAMBDA_HF and LAMBDA_SCALES times the
-    weighted starlet l1 of h (JAX's ``_star_loss_fn`` under vmap)."""
+    weighted starlet l1 of h (JAX's ``_star_loss_fn`` under vmap).
+
+    On a (batch, epoch) mesh ``model`` and ``consts`` are this rank's
+    epoch share (:func:`_epoch_share`) of ``epochs`` = ``(start, stop)``:
+    the per-epoch leaves are cut to them, rank 0 of the epoch ``group``
+    adds the starlet terms, and the per-star losses and the gradient are
+    summed over the group."""
     m = model.m
     w = consts["epoch_w"].reshape(-1)[:, None, None]
+    first = group is None or dist.get_rank(group) == 0
 
     def loss_fn(free):
         kw = merge_free(free, consts["fixed"])
+        if epochs is not None:
+            start, stop = epochs
+            kw = {g: {k: v[:, start:stop] if k in PER_EPOCH_KEYS else v
+                      for k, v in leaves.items()} for g, leaves in kw.items()}
         modelled = model.model(_model_kwargs(kw), consts["fixed_h_render"],
                                consts["render"])
         res = (consts["data"] - modelled) ** 2 / consts["sigma_2"]
         total = 0.5 * torch.nansum((w * res).reshape(n_stars, -1), dim=1)
-        if "W" in consts:
+        if "W" in consts and first:
             coeffs = starlet_transform(
                 kw["kwargs_background"]["h"].reshape(n_stars, m, m))
             wabs = consts["W"] * _abs(coeffs)
@@ -187,7 +249,9 @@ def _star_losses(model, consts, n_stars):
                 + LAMBDA_SCALES * wabs[:, 1:-1].sum(dim=(1, 2, 3))
         return total
 
-    return loss_fn
+    if group is None:
+        return loss_fn
+    return lambda free: sum_over_group(loss_fn, free, group)
 
 
 def _finalize_stars(model, best, history, consts, scale):
@@ -251,10 +315,23 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
             (``core.optimize.CheckpointMismatch``) a file recorded for
             other data, PSFs, flags, budget or render. Not with
             ``fetch="device"``.
-        mesh: "auto" or None, the one device; any other mesh raises
-            (multi-GPU, ROADMAP.md queue 1 item 3).
+        mesh: "auto" (default) picks the mesh for the star count when
+            ``torch.distributed`` has several ranks
+            (``parallel.batch.auto_fit_mesh``): a 1-D ``batch`` mesh when
+            there are at least as many stars as ranks (the per-star fits
+            are independent: no collective until the gather), a 2-D
+            (``batch``, ``epoch``) mesh when there are fewer, whose spare
+            ranks shard each star's epochs; None forces the unsharded
+            fit; explicit meshes of either shape are accepted. Star
+            counts that do not divide the batch extent are padded with
+            duplicate stars, epoch counts that do not divide the epoch
+            extent with dummy epochs; both are stripped from the result.
+            Above one rank the render is "matmul", as JAX forces "mxu";
+            with ``checkpoint_path`` rank 0 writes and reads the gathered
+            carry and broadcasts it.
         fetch: "numpy" (default) returns host arrays; "device" the
-            tensors on the device, unsynchronised.
+            tensors on the device, unsynchronised (on the host, gathered,
+            under a mesh of several ranks).
         device: torch device of the fit: the card unless the caller asks
             for "cpu"; there is no fallback.
         irfft_backend: "fft" (cuFFT) or "matmul", the port's name for
@@ -273,10 +350,6 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     """
     enforce_fp32()
     check_irfft_backend(irfft_backend)
-    if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
-        raise NotImplementedError(
-            "fit_stars_batched: a mesh other than 'auto' or None "
-            "(multi-GPU) is not ported yet: ROADMAP.md queue 1 item 3")
     if fetch not in ("numpy", "device"):
         raise ValueError(f"fetch={fetch!r}: 'numpy' or 'device' expected")
     if checkpoint_path is not None and fetch == "device":
@@ -297,6 +370,16 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
     def on(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
+    n_stars, n_pix = data.shape[0], data.shape[2]
+    mesh = resolve_mesh(mesh, lambda: auto_fit_mesh(n_stars))
+    names = () if mesh is None else tuple(mesh.mesh_dim_names or ())
+    if mesh is not None and names not in ((BATCH_AXIS,),
+                                          (BATCH_AXIS, EPOCH_AXIS)):
+        raise ValueError("fit_stars_batched takes a 'batch' or a "
+                         f"('batch', 'epoch') mesh, not {names}")
+    if mesh is not None and mesh.size() > 1:
+        irfft_backend = "matmul"
+
     digest = None
     if checkpoint_path is not None:
         # the flags, the seed of the noise draws and the render change the
@@ -309,18 +392,48 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
             np.zeros(0, np.float32) if noise_weights is None
             else np.asarray(noise_weights, dtype=np.float32))
 
-    n_stars = data.shape[0]
+    # the draws (or given weights) of each real star, padded and split
+    # like its data
+    per_star = None
+    if starlet_global_background:
+        per_star = _noise_draws(n_stars, n_pix, seed).numpy() \
+            if noise_weights is None else noise_weights
+    n_star_pad = n_epoch_pad = 0
+    epochs = group = share = None
+    if mesh is not None:
+        data, noisemap, psf, n_epoch_pad = pad_epoch_axis(
+            data, noisemap, psf, axis_size(mesh, EPOCH_AXIS))
+        extra = () if per_star is None else (per_star,)
+        (data, noisemap, psf, *extra), n_star_pad = shard_star_fit_arrays(
+            mesh, data, noisemap, psf, *extra)
+        per_star = extra[0] if extra else None
+        if EPOCH_AXIS in names:
+            epochs = epoch_range(mesh, data.shape[1])
+            group = mesh.get_group(EPOCH_AXIS)
+        if checkpoint_path is not None:
+            share = CheckpointShare(mesh)
+    draws = None if noise_weights is not None or per_star is None \
+        else torch.as_tensor(per_star)
+    weights = per_star if noise_weights is not None else None
+
+    n_local = data.shape[0]
     model, free0, lower, upper, consts, scale = _prepare_stars(
         on(data), on(noisemap), on(psf), int(subsampling_factor),
         bool(uniform_background_per_epoch), bool(starlet_global_background),
-        irfft_backend, seed, noise_weights)
+        irfft_backend, seed, weights, draws=draws, group=group)
+    loss_model, loss_consts = (model, consts) if epochs is None \
+        else _epoch_share(model, consts, epochs)
     best, _, history = run_adabelief_batched(
-        _star_losses(model, consts, n_stars), free0, lower, upper,
-        int(n_iter), init_learning_rate=float(lr),
+        _star_losses(loss_model, loss_consts, n_local, epochs, group),
+        free0, lower, upper, int(n_iter), init_learning_rate=float(lr),
         schedule_learning_rate=True, checkpoint_path=checkpoint_path,
-        checkpoint_every=checkpoint_every, inputs_digest=digest)
+        checkpoint_every=checkpoint_every, inputs_digest=digest,
+        checkpoint_share=share)
     with torch.no_grad():
         out = _finalize_stars(model, best, history, consts, scale)
+    if mesh is not None:
+        out = strip_epoch_axis(
+            strip_batch(gather_to_host(mesh, out), n_star_pad), n_epoch_pad)
     if fetch == "device":
         return out
     return kwargs_to_numpy(out)

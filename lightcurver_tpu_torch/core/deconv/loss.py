@@ -16,6 +16,14 @@ name for JAX's "mxu", builds the pooled DFT matrices and the raw PSF
 spectra (``DeconvModel.matmul_consts``) and renders every evaluation
 through the all-real matmul-DFT path, whose kernel is K2.
 
+Epoch sharding (``parallel/``): with ``epochs=(start, stop)`` and a
+process ``group``, the loss of one rank is the chi2 of its own epochs,
+rendered by the model's slice over them (so K2 renders only those), and
+rank 0 of the group adds every other term once, on the full tree. The
+parameters are replicated on every rank: :func:`sum_over_group`
+all-reduces the value and the gradient in one flat collective, so every
+rank steps identically. Without a group the sum keeps its unsharded order.
+
 Two subgradients are chosen to match JAX at exact zeros, which is where
 stage 2 starts (h = 0): ``|x|`` has slope +1 at 0 (``torch.abs`` has 0),
 and ``max(-h, 0)`` splits the slope 0.5 / 0.5 at the tie, as
@@ -23,17 +31,72 @@ and ``max(-h, 0)`` splits the slope 0.5 / 0.5 at the tie, as
 """
 
 import torch
+import torch.distributed as dist
 
 from ..starlet import n_starlet_scales
 from ..params import merge_free
 from ..profiles import gaussian_r_kernel
 from ...ops import check_irfft_backend
 from ...ops.starlet_op import starlet_transform
+from ...parallel.deconv import shard_consts, shard_pytree
 
 
 def _abs(x):
     """|x| with derivative +1 at 0, as ``jnp.abs``."""
     return torch.where(x >= 0, x, -x)
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _with_leaves(tree, leaves):
+    """``tree`` with its leaves, in :func:`_leaves` order, replaced."""
+    return {k: _with_leaves(v, leaves) if isinstance(v, dict)
+            else next(leaves) for k, v in tree.items()}
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over the ranks of ``group`` of ``fn(*leaves)``, with its
+    gradient: each rank evaluates its own term and its gradient, and one
+    flat ``all_reduce`` carries the values and the gradients, so every
+    rank holds the same sum. A value with a leading problem axis (the
+    per-star losses) must depend on each problem's slice of the leaves
+    only: its gradient is then scaled per problem."""
+
+    @staticmethod
+    def forward(ctx, fn, group, *leaves):
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(True) for x in leaves]
+            value = fn(*xs)
+            grads = torch.autograd.grad(value.sum(), xs, allow_unused=True)
+        parts = [value.detach()] + [
+            torch.zeros_like(x) if g is None else g
+            for x, g in zip(xs, grads)]
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        dist.all_reduce(flat, group=group)
+        value, *ctx.grads = [
+            chunk.reshape(p.shape) for chunk, p in zip(
+                flat.split([p.numel() for p in parts]), parts)]
+        return value
+
+    @staticmethod
+    def backward(ctx, grad_value):
+        if grad_value.dim() == 0:
+            scaled = [grad_value * g for g in ctx.grads]
+        else:
+            scaled = [g * grad_value.reshape((-1,) + (1,) * (g.dim() - 1))
+                      for g in ctx.grads]
+        return (None, None, *scaled)
+
+
+def sum_over_group(fn, tree, group):
+    """``fn(tree)`` summed over the ranks of ``group``, differentiable in
+    the tensors of ``tree`` (see :class:`_SumOverGroup`)."""
+    leaves = _leaves(tree)
+    return _SumOverGroup.apply(
+        lambda *xs: fn(_with_leaves(tree, iter(xs))), group, *leaves)
 
 
 class Prior:
@@ -57,7 +120,12 @@ class Loss:
                  regularization_strength_pts_source=0.0,
                  regularization_strength_flux_uniformity=0.0,
                  W=None, prior=None, epoch_weights=None,
-                 irfft_backend="fft"):
+                 irfft_backend="fft", epochs=None, group=None):
+        """
+        ``epochs``: ``(start, stop)``, the epochs whose chi2 this rank
+        computes (default: all); ``group``: the process group over whose
+        ranks the loss is summed (default: none, one process).
+        """
         model = self.model = deconv_class
         self.params = param_class
         device, m = model.device, model.m
@@ -72,10 +140,24 @@ class Loss:
         self.lambda_pos = float(regularization_strength_positivity)
         self.lambda_pts = float(regularization_strength_pts_source)
         self.lambda_flux_uni = float(regularization_strength_flux_uniformity)
-        self.data = t(data)
-        self.sigma_2 = t(sigma_2)
         self.epoch_w = t(epoch_weights) if epoch_weights is not None \
             else torch.ones(model.n_epochs, device=device)
+        if (epochs is None) != (group is None):
+            raise ValueError("Loss: an epoch range and a process group go "
+                             "together (each rank sums its own epochs)")
+        self.group = group
+        self.epochs = (0, model.n_epochs) if epochs is None \
+            else tuple(int(e) for e in epochs)
+        self.whole = self.epochs == (0, model.n_epochs)
+        # the chi2 of this rank's epochs, through the model's slice
+        self.local_model = model if self.whole \
+            else model.epoch_slice(*self.epochs)
+        local = shard_consts({"data": t(data), "sigma_2": t(sigma_2),
+                              "epoch_w": self.epoch_w}, self.epochs)
+        self.data, self.sigma_2 = local["data"], local["sigma_2"]
+        self.local_w = local["epoch_w"]
+        # the terms other than the chi2, counted once: on rank 0
+        self.first = group is None or dist.get_rank(group) == 0
         self.W = t(W) if W is not None else torch.ones(
             self.n_scales + 1, m, m, device=device)
         self.priors = [(name, t(mean), t(sigma)) for name, mean, sigma
@@ -95,33 +177,50 @@ class Loss:
                 self.pts_weights = torch.clamp(bump, max=1.0)
 
         check_irfft_backend(irfft_backend)
-        self.consts = model.matmul_consts() if irfft_backend == "matmul" \
-            else None
+        self.consts = self.local_model.matmul_consts() \
+            if irfft_backend == "matmul" else None
 
         # a FIXED background renders the same every iteration: do it once
         self.fixed_h_render = None
         fixed_bg = param_class.fixed.get("kwargs_background", {})
         if "h" in fixed_bg:
             with torch.no_grad():
-                self.fixed_h_render = model._h_render(t(fixed_bg["h"]),
-                                                      self.consts)
+                self.fixed_h_render = self.local_model._h_render(
+                    t(fixed_bg["h"]), self.consts)
 
     def loss_fn(self, free):
         """Scalar loss at the free tree (fixed values from the Params)."""
-        return self._total(merge_free(free, self.params.fixed),
-                           self.fixed_h_render)
+        fixed = self.params.fixed
+        return self._summed(lambda f: self._total(merge_free(f, fixed),
+                                                  self.fixed_h_render), free)
 
     def __call__(self, kwargs):
         """Loss at full kwargs, everything free (h rendered)."""
-        return self._total(kwargs, None)
+        return self._summed(lambda k: self._total(k, None), kwargs)
+
+    def _summed(self, fn, tree):
+        if self.group is None:
+            return fn(tree)
+        return sum_over_group(fn, tree, self.group)
 
     def _total(self, kwargs, fixed_h_render):
+        """This rank's chi2 term, plus, on rank 0, every other term."""
+        model = self.local_model
+        local = kwargs if self.whole \
+            else shard_pytree(kwargs, self.epochs, model.n_sources)
+        modelled = model.model(local, fixed_h_render, self.consts)
+        res = (self.data - modelled) ** 2 / self.sigma_2
+        total = 0.5 * torch.nansum(self.local_w[:, None, None] * res)
+        if self.first:
+            total = self._regularization(total, kwargs)
+        return total
+
+    def _regularization(self, total, kwargs):
+        """``total`` plus the terms of the full tree other than the chi2:
+        starlet l1, positivity, point-source proximity, flux uniformity
+        (each source's mean and scatter over all epochs) and priors."""
         model, m = self.model, self.model.m
         w = self.epoch_w
-        modelled = model.model(kwargs, fixed_h_render, self.consts)
-        res = (self.data - modelled) ** 2 / self.sigma_2
-        total = 0.5 * torch.nansum(w[:, None, None] * res)
-
         h_flat = kwargs["kwargs_background"]["h"]
         a = kwargs["kwargs_analytic"]["a"].reshape(model.n_epochs,
                                                    model.n_sources)

@@ -35,6 +35,8 @@ problems of N / G consecutive epochs each, as the JAX package's
 (G, m*m), one per group; everything else is per epoch.
 """
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -106,6 +108,25 @@ class DeconvModel:
             else dft.rfft2_pad_matmul(self.psf_pad, dft_mats)
         self.ps_hat = t_hat * conv.r_kernel_fft(self.m, self.s, self.device)
         self.grid_hat = t_hat * conv.grid_center_phase(self.m, self.device)
+
+    def epoch_slice(self, start, stop):
+        """The model of epochs ``[start, stop)`` only (with groups, those
+        of every group): a rank's share of an epoch-sharded fit
+        (``parallel/``). It shares this model's PSF spectra, so it renders
+        those epochs with the same bits, and its render constants
+        (:meth:`matmul_consts`, hence K2's operands) cover those epochs
+        only."""
+        n_groups = self.n_groups or 1
+
+        def cut(x):
+            return x.unflatten(0, (n_groups, -1))[:, start:stop].flatten(0, 1)
+
+        part = copy.copy(self)
+        part.n_epochs = n_groups * (int(stop) - int(start))
+        part.psf_pad = cut(self.psf_pad)
+        part.ps_hat = cut(self.ps_hat)
+        part.grid_hat = cut(self.grid_hat)
+        return part
 
     def source_positions(self, kwargs):
         """Per-epoch positions (px, py), each (N, M), data px, centre origin."""

@@ -18,8 +18,10 @@ the matmul DFT of ``ops/dft.py``, as the JAX package does on that backend.
 """
 
 import torch
+import torch.distributed as dist
 
 from .grids import upsample_transpose
+from .starlet import n_starlet_scales
 from . import convolution as conv
 from ..ops import check_irfft_backend, dft
 from ..ops.starlet_op import starlet_transform
@@ -67,14 +69,25 @@ def epoch_nanmedian(stack, dim=0):
 
 
 def propagate_noise(model, noisemap, num_samples=500, seed=1,
-                    irfft_backend="fft"):
+                    irfft_backend="fft", group=None):
     """Starlet noise weights W, (J + 1, m, m), on the model's device.
 
     ``noisemap``: (N, n, n) noise sigmas (tensor or array); the per-pixel
     sigma is their :func:`epoch_nanmedian`. ``irfft_backend``: "fft" or
-    "matmul", as for ``Loss``.
+    "matmul", as for ``Loss``. With a process ``group`` (an epoch-sharded
+    fit), rank 0 of the group computes W and broadcasts it, so every rank
+    fits with the same bits.
     """
     check_irfft_backend(irfft_backend)
+    if group is not None:
+        if dist.get_rank(group) == 0:
+            W = propagate_noise(model, noisemap, num_samples, seed,
+                                irfft_backend)
+        else:
+            W = torch.empty((n_starlet_scales(model.m) + 1, model.m,
+                             model.m), device=model.device)
+        dist.broadcast(W, group=group, group_src=0)
+        return W
     noisemap = torch.as_tensor(noisemap, dtype=torch.float32,
                                device=model.device)
     sigma = epoch_nanmedian(noisemap)

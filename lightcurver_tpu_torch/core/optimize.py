@@ -28,7 +28,13 @@ iteration index, so the learning-rate schedule spans the full run and a
 resumed fit takes the uninterrupted fit's steps. A file recorded for
 another budget, other inputs or another carry, or one that cannot be
 read, is refused with :class:`CheckpointMismatch`. The files are the
-port's own; they need not read the JAX package's.
+port's own; they need not read the JAX package's. Under a mesh
+(``checkpoint_share``, ``parallel/batch.CheckpointShare``) the ranks share
+one file: global rank 0 writes the carry gathered along the batch axis,
+reads it, decides whether to resume and broadcasts its decision and its
+carry (the ranks never split, and need no shared disk), and a barrier
+before the read and after each write keeps a rank's resume or deletion
+from racing another's write.
 
 Frame-batched twins (the JAX package's ``adabelief_scan`` and
 ``lbfgsb_scan`` under ``jax.vmap``): :func:`run_adabelief_batched` and
@@ -141,14 +147,17 @@ def run_adabelief(loss_fn, free0, lower, upper, n_iter,
 def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
                                checkpoint_path, init_learning_rate=1e-3,
                                schedule_learning_rate=True,
-                               checkpoint_every=500, inputs_digest=None):
+                               checkpoint_every=500, inputs_digest=None,
+                               checkpoint_share=None):
     """Projected AdaBelief in resumable segments with on-disk checkpoints.
 
     With ``checkpoint_path`` None it is one segment and writes nothing.
     Otherwise a checkpoint is written after every ``checkpoint_every``
     iterations, and a call that finds one resumes from it (see the module
     docstring); ``inputs_digest`` (:func:`arrays_digest` of the fit's
-    inputs) is stored with it and must match on resume.
+    inputs) is stored with it and must match on resume;
+    ``checkpoint_share`` shares the file between the ranks of a mesh (see
+    the module docstring).
 
     Returns:
         (best_free, final_free, loss_history[n_iter]) as
@@ -179,7 +188,7 @@ def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
 
     theta, _, _, best, _ = run_segments(
         steps, _adabelief_carry(theta), history, n_iter, checkpoint_path,
-        checkpoint_every, inputs_digest)
+        checkpoint_every, inputs_digest, checkpoint_share)
     return (_free_from(best, spec, free0), _free_from(theta, spec, free0),
             history.cpu().numpy())
 
@@ -257,7 +266,8 @@ def _value_and_grad_batched(loss_fn, spec):
 def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
                           init_learning_rate=1e-3,
                           schedule_learning_rate=True, checkpoint_path=None,
-                          checkpoint_every=500, inputs_digest=None):
+                          checkpoint_every=500, inputs_digest=None,
+                          checkpoint_share=None):
     """Projected AdaBelief over F independent problems.
 
     ``free0``: tree of (F, ...) tensors; ``lower``/``upper``: trees of the
@@ -266,7 +276,8 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
     and its best loss. ``checkpoint_path``, ``checkpoint_every`` and
     ``inputs_digest`` checkpoint the per-frame carry as
     :func:`run_adabelief_checkpointed` does (JAX's batched star fit,
-    ``_fit_stars_checkpointed``); with no path nothing is written.
+    ``_fit_stars_checkpointed``); with no path nothing is written;
+    ``checkpoint_share`` shares the file between the ranks of a mesh.
 
     Returns:
         (best_free, final_free, loss_history) with the history an (F,
@@ -294,7 +305,7 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
 
     theta, _, _, best, _ = run_segments(
         steps, _adabelief_carry(theta, theta.shape[0]), history, n_iter,
-        checkpoint_path, checkpoint_every, inputs_digest)
+        checkpoint_path, checkpoint_every, inputs_digest, checkpoint_share)
     return (unflatten_batched(best, spec), unflatten_batched(theta, spec),
             history)
 
@@ -532,7 +543,10 @@ class CheckpointMismatch(ValueError):
     (changed inputs, budget or carry structure, or an unreadable file).
     The pipeline tasks catch this type
     (``utilities/checkpoints.run_discarding_stale_checkpoint``) to discard
-    the file and start again."""
+    the file and start again. ``share``: the ranks' ``CheckpointShare``
+    when a sharded fit refused (on every rank at once), else None."""
+
+    share = None
 
 
 def _check_ckpt_digest(path, stored, expected):
@@ -549,7 +563,8 @@ def _check_ckpt_digest(path, stored, expected):
 
 def _load_ckpt_carry(z, fresh, path):
     """The stored carry, checked against the fresh one leaf by leaf
-    (count both ways, shapes), as tensors on the fresh carry's device."""
+    (count both ways, shapes), as tensors of the fresh carry's dtype on
+    its device."""
     n_leaves = len(fresh)
     if any(f"leaf_{i}" not in z for i in range(n_leaves)):
         raise CheckpointMismatch(
@@ -570,8 +585,8 @@ def _load_ckpt_carry(z, fresh, path):
                 f"{tuple(stored.shape)}, expected {tuple(leaf.shape)} "
                 "(free-parameter set or epoch padding changed); refusing "
                 "to resume: delete the checkpoint to restart")
-        carry.append(torch.from_numpy(np.array(stored, dtype=np.float32))
-                     .to(leaf.device))
+        carry.append(torch.as_tensor(np.array(stored), dtype=leaf.dtype,
+                                     device=leaf.device))
     return tuple(carry)
 
 
@@ -619,13 +634,54 @@ def save_checkpoint(path, carry, n_iter, done, history, inputs_digest=None):
     os.replace(tmp, path)
 
 
+def _resume(path, carry, history, n_iter, inputs_digest, share):
+    """``(carry, done, history)`` of the checkpoint at ``path``, or None
+    without one. Under a ``share`` global rank 0 alone looks at the file
+    and decides, after a barrier; the other ranks take its decision, its
+    carry and its history from a broadcast and keep their share. A
+    refusal raises :class:`CheckpointMismatch` on every rank, with the
+    share as its ``share`` (``utilities/checkpoints``: rank 0 alone then
+    deletes the file)."""
+    if share is None:
+        if not os.path.exists(path):
+            return None
+        stored_carry, done, stored = load_checkpoint(path, carry, n_iter,
+                                                     inputs_digest)
+        return stored_carry, done, torch.from_numpy(np.array(stored))
+    share.barrier()
+    full = tuple(share.full(x) for x in carry)
+    full_history = share.full(history).clone()
+    status, done, refusal = 0, 0, None  # status 0 no file, 1 resume, 2 refused
+    if share.is_writer and os.path.exists(path):
+        try:
+            full, done, stored = load_checkpoint(path, full, n_iter,
+                                                 inputs_digest)
+            full_history[..., :done] = torch.from_numpy(
+                np.array(stored[..., :done]))
+            status = 1
+        except CheckpointMismatch as e:
+            status, refusal = 2, e
+    status, done = share.broadcast(torch.tensor([status, done])).tolist()
+    if status == 2:
+        refusal = refusal or CheckpointMismatch(
+            f"checkpoint {path} refused on rank 0; delete it to restart")
+        refusal.share = share
+        raise refusal
+    if status == 0:
+        return None
+    return (tuple(share.local(share.broadcast(x)).to(c.device)
+                  for x, c in zip(full, carry)), done,
+            share.local(share.broadcast(full_history)))
+
+
 def run_segments(steps, carry, history, n_iter, checkpoint_path,
-                 checkpoint_every, inputs_digest):
+                 checkpoint_every, inputs_digest, share=None):
     """Drive ``steps(carry, iterations) -> carry`` over ``range(n_iter)``:
     in one segment without a path; else resume from the checkpoint at
     ``checkpoint_path`` if there is one (its history goes to
     ``history[..., :done]``) and write one after every
-    ``checkpoint_every`` iterations."""
+    ``checkpoint_every`` iterations. ``share`` (a
+    ``parallel.batch.CheckpointShare``) shares the file between ranks."""
     if checkpoint_path is None:
         return steps(carry, range(n_iter))
     every = int(checkpoint_every)
@@ -633,18 +689,27 @@ def run_segments(steps, carry, history, n_iter, checkpoint_path,
         raise ValueError(
             f"checkpoint_every must be positive, got {checkpoint_every} "
             "(a non-positive segment length would loop forever)")
+
+    def whole(x):
+        return x if share is None else share.full(x)
+
     done = 0
-    if os.path.exists(checkpoint_path):
-        carry, done, stored = load_checkpoint(checkpoint_path, carry,
-                                              n_iter, inputs_digest)
-        history[..., :done] = torch.from_numpy(
-            np.array(stored[..., :done], dtype=np.float32))
+    resumed = _resume(checkpoint_path, carry, history, n_iter, inputs_digest,
+                      share)
+    if resumed is not None:
+        carry, done, stored = resumed
+        history[..., :done] = stored[..., :done]
     while done < n_iter:
         stop = min(done + every, n_iter)
         carry = steps(carry, range(done, stop))
         done = stop
-        save_checkpoint(checkpoint_path, carry, n_iter, done,
-                        history[..., :done], inputs_digest=inputs_digest)
+        written = tuple(whole(x) for x in carry)
+        written_history = whole(history[..., :done])
+        if share is None or share.is_writer:
+            save_checkpoint(checkpoint_path, written, n_iter, done,
+                            written_history, inputs_digest=inputs_digest)
+        if share is not None:
+            share.barrier()
     return carry
 
 
@@ -674,11 +739,13 @@ class Optimizer:
 
     def minimize(self, max_iterations, init_learning_rate=1e-3,
                  schedule_learning_rate=True, checkpoint_path=None,
-                 checkpoint_every=500, checkpoint_inputs_digest=None):
+                 checkpoint_every=500, checkpoint_inputs_digest=None,
+                 checkpoint_share=None):
         """Returns (best_kwargs, logL, {"loss_history": ...}, runtime_s).
 
-        ``checkpoint_path``, ``checkpoint_every`` and
-        ``checkpoint_inputs_digest`` run AdaBelief through
+        ``checkpoint_path``, ``checkpoint_every``,
+        ``checkpoint_inputs_digest`` and ``checkpoint_share`` run
+        AdaBelief through
         :func:`run_adabelief_checkpointed`; L-BFGS ignores them, as in
         the JAX package.
         """
@@ -692,7 +759,8 @@ class Optimizer:
                 checkpoint_path, init_learning_rate=init_learning_rate,
                 schedule_learning_rate=schedule_learning_rate,
                 checkpoint_every=checkpoint_every,
-                inputs_digest=checkpoint_inputs_digest)
+                inputs_digest=checkpoint_inputs_digest,
+                checkpoint_share=checkpoint_share)
         else:
             best, _, hist = run_lbfgsb(self.loss.loss_fn, free0, p.lower,
                                        p.upper, n_iter)

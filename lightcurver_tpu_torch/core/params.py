@@ -46,9 +46,14 @@ def split_free(kwargs_init, kwargs_fixed):
 
 
 def merge_free(free, fixed):
-    """Merge a free and a fixed tree back into full kwargs."""
+    """Merge a free and a fixed tree back into full kwargs, keys sorted.
+
+    The order is the same in every process (a set's order follows the
+    per-process string hash): the trees built from the result flatten
+    into the same parameter vector on every rank of a mesh and in a
+    process that resumes another's checkpoint."""
     out = {}
-    for k in set(free) | set(fixed):
+    for k in sorted(set(free) | set(fixed)):
         fv, xv = free.get(k), fixed.get(k)
         if isinstance(fv, dict) or isinstance(xv, dict):
             out[k] = merge_free(fv or {}, xv or {})

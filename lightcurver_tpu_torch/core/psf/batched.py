@@ -11,7 +11,10 @@ which drop out of the chi2 and of the noise-weight statistics.
 The starlet l1 of all F frames is one K1 launch forward and one adjoint
 per phase-2 loss evaluation (``ops.starlet_op``).
 
-Multi-GPU sharding of the frame axis (JAX's ``mesh``) is not ported.
+Under several ranks (``parallel/``) the frames are padded and split over
+a ``batch`` mesh: each rank fits its frames alone, K1 at the local batch
+(so the wrapper's cluster size may differ from the unsharded fit's), and
+the results are all-gathered to every rank and stripped.
 """
 
 import numpy as np
@@ -21,6 +24,9 @@ from ..optimize import run_adabelief_batched, run_lbfgsb_batched
 from ..params import kwargs_to_numpy
 from ..starlet import n_starlet_scales
 from ...ops import enforce_fp32
+from ...parallel.batch import (BATCH_AXIS, auto_batch_mesh, gather_to_host,
+                               pad_batch_arrays, strip_batch)
+from ...parallel.mesh import resolve_mesh
 from .build import (_grid_noise_weights_closed, _masked_chi2_per_star,
                     phase_losses, psf_bound_values, psf_dft_mats)
 from .distortion import DISTORTION_BASIS_SIZE, zero_distortion_kwargs
@@ -162,7 +168,7 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
                       stamp_coordinates=None, guess_fwhm_pixels=None,
                       n_iter_analytic=100, n_iter_adabelief=3000,
                       field_distortion=False, regularization_strength=1.0,
-                      adabelief_lr=5e-4, *, device="cuda",
+                      adabelief_lr=5e-4, *, mesh="auto", device="cuda",
                       irfft_backend="fft", dft_pad=None, fetch="numpy"):
     """Fit the narrow PSFs of many frames at once.
 
@@ -180,9 +186,18 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
             for the CPU; there is no fallback).
         irfft_backend, dft_pad: the render, as for
             :func:`..build.build_psf`.
+        mesh: "auto" (default) shards the frame axis over every rank when
+            ``torch.distributed`` has more than one
+            (``parallel.batch.auto_batch_mesh``; the per-frame fits are
+            independent, so no collective runs until the results are
+            gathered); None forces the unsharded fit; or an explicit 1-D
+            ``batch`` mesh. Frame counts that do not divide the mesh are
+            padded with duplicate frames, stripped from the result. Above
+            one rank the render is "matmul", as JAX forces "mxu".
         fetch: "numpy" (default) returns host arrays; "device" returns
             the tensors on the device, unsynchronised, so the caller can
-            queue more work before reading them.
+            queue more work before reading them (on the host, gathered,
+            under a mesh of several ranks).
 
     Returns:
         dict of stacked per-frame results: narrow_psf, full_psf, chi2,
@@ -213,6 +228,19 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
         return torch.as_tensor(np.ascontiguousarray(x, dtype=dtype),
                                device=device)
 
+    mesh = resolve_mesh(mesh, auto_batch_mesh)
+    arrays = (images, noisemaps, masks, stamp_coordinates, guess_fwhm_pixels)
+    sharded = mesh is not None and mesh.size() > 1
+    n_pad = 0
+    if mesh is not None:
+        if tuple(mesh.mesh_dim_names or ()) != (BATCH_AXIS,):
+            raise ValueError("build_psf_batched shards frames over a 1-D "
+                             f"'{BATCH_AXIS}' mesh, not "
+                             f"{mesh.mesh_dim_names}")
+        arrays, n_pad = pad_batch_arrays(mesh, *arrays)
+    if sharded:
+        irfft_backend = "matmul"
+    images, noisemaps, masks, stamp_coordinates, guess_fwhm_pixels = arrays
     s = int(subsampling_factor)
     out = _fit_frames(
         on(images), on(noisemaps), on(masks, bool), on(stamp_coordinates),
@@ -220,6 +248,8 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
         int(n_iter_analytic), int(n_iter_adabelief),
         float(regularization_strength), float(adabelief_lr),
         psf_dft_mats(int(n_pix) * s, s, irfft_backend, dft_pad, device))
+    if mesh is not None:
+        out = strip_batch(gather_to_host(mesh, out), n_pad)
     if fetch == "device":
         return out
     return kwargs_to_numpy(out)

@@ -17,9 +17,10 @@ GLS solve. ``xs``/``ys`` arrive in stamp pixel coordinates, as the task
 holds them after ``world_to_pixel``.
 
 The task also writes the per-night HTML light curve beside the CSVs and
-the diagnostic JPEG under ``plots/pixel_modelling/``, as JAX's does. Left
-out of the task: the epoch mesh over several devices (ROADMAP.md queue 1
-item 3); it logs a line saying so. h5py, pandas and matplotlib are
+the diagnostic JPEG under ``plots/pixel_modelling/``, as JAX's does.
+Under several ranks (``torchrun``; ``parallel/``) :func:`fit_roi` shards
+its two fit stages over an epoch mesh, as the JAX task does over its
+devices (:func:`_maybe_epoch_mesh`). h5py, pandas and matplotlib are
 imported by the task and the plotting package, so the module imports on a
 machine without them.
 
@@ -39,7 +40,7 @@ import torch
 from scipy.ndimage import rotate, shift
 
 from ..core.deconv.loss import Loss, Prior
-from ..core.deconv.model import setup_model
+from ..core.deconv.model import DeconvModel, setup_model
 from ..core.fisher import get_flux_uncertainties, linear_flux_solve
 from ..core.noise import propagate_noise
 from ..core.optimize import (Optimizer, arrays_digest,
@@ -49,6 +50,11 @@ from ..core.params import Params, kwargs_from_numpy, kwargs_to_numpy
 from ..io.fits import Header, read_fits, write_fits
 from ..io.wcs import TanWCS, upsampled_wcs
 from ..ops import enforce_fp32
+from ..parallel.batch import CheckpointShare
+from ..parallel.deconv import (epoch_range, pad_epoch_kwargs,
+                               pad_epoch_stacks, strip_epoch_kwargs)
+from ..parallel.mesh import (EPOCH_AXIS, axis_size, epoch_mesh,
+                             resolve_mesh, world_size)
 from ..structure.database import get_pandas
 from ..structure.user_config import get_user_config
 from ..utilities.checkpoints import run_discarding_stale_checkpoint
@@ -93,10 +99,21 @@ def _copy_tree(tree):
             for k, v in tree.items()}
 
 
+def _maybe_epoch_mesh():
+    """An epoch mesh over every rank whenever there is more than one.
+
+    Any epoch count shards: non-divisible counts are padded with exactly
+    masked dummy epochs (``parallel/deconv.pad_epoch_stacks``), never
+    dropped to a single device.
+    """
+    return epoch_mesh() if world_size() > 1 else None
+
+
 def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
             pixel_scale, angles_to_north, config, *, device="cuda",
             noise_weights=None, irfft_backend="fft", checkpoint_path=None,
-            checkpoint_every=500, checkpoint_inputs_digest=None):
+            checkpoint_every=500, checkpoint_inputs_digest=None,
+            mesh="auto"):
     """Jointly model all ROI epochs; returns fluxes, errors and diagnostics.
 
     Args:
@@ -128,6 +145,19 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
             match this fit (budget, carry, or the digest, see
             :func:`roi_checkpoint_digest`) is discarded and stage 2 starts
             again, and the file is deleted when the fit succeeds.
+        mesh: "auto" (the default) shards the two fit stages over an
+            epoch mesh of every rank when ``torch.distributed`` has more
+            than one (:func:`_maybe_epoch_mesh`), else fits unsharded;
+            None forces the unsharded fit; or a mesh with an ``epoch``
+            axis (``parallel.mesh.epoch_mesh``). On a mesh every rank
+            holds every parameter, computes the chi2 of its epochs
+            (padded to a multiple of the ranks with masked dummy epochs)
+            and the loss and gradient are all-reduced; above one rank
+            the render is "matmul". W is computed on rank 0 and
+            broadcast; the GLS polish, errors and chi2 run on the full
+            tree on every rank, which all return the same result. Under
+            a mesh with ``checkpoint_path``, rank 0 writes and every rank
+            reads the one file.
 
     Returns:
         dict with
@@ -176,6 +206,7 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
     model, kwargs_init, kwargs_up, kwargs_down, _ = setup_model(
         data, noisemap**2, psf, initial_c_x, initial_c_y, s, initial_a,
         device=device)
+    n_sources = model.n_sources
 
     def t(x):
         return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
@@ -197,18 +228,54 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
     data_t, noise_t = t(data), t(noisemap)
     var_t = noise_t**2
 
+    mesh = resolve_mesh(mesh, _maybe_epoch_mesh)
+    n_pad, group, share = 0, None, None
+    sharded = {}
+    model_fit, data_fit, var_fit = model, data_t, var_t
+    if mesh is not None:
+        if tuple(mesh.mesh_dim_names or ()) != (EPOCH_AXIS,):
+            raise ValueError(f"fit_roi shards epochs over a 1-D "
+                             f"'{EPOCH_AXIS}' mesh, not "
+                             f"{mesh.mesh_dim_names}")
+        n_shards = axis_size(mesh, EPOCH_AXIS)
+        group, share = mesh.get_group(EPOCH_AXIS), CheckpointShare(mesh)
+        if mesh.size() > 1:
+            irfft_backend = "matmul"
+        data_p, var_p, psf_p, epoch_w = pad_epoch_stacks(
+            data, noisemap**2, np.asarray(psf, dtype=np.float32), n_shards)
+        n_pad = data_p.shape[0] - n_epochs
+        if n_pad:
+            model_fit = DeconvModel(t(psf_p), s, im_size_x,
+                                    n_epochs + n_pad, n_sources)
+            data_fit, var_fit = t(data_p), t(var_p)
+        sharded = dict(epoch_weights=epoch_w, group=group,
+                       epochs=epoch_range(mesh, n_epochs + n_pad))
+        logger.info(f"Epoch-sharding the joint fit over {n_shards} devices "
+                    f"({n_pad} zero-weight padding epochs).")
+
+    def padded(tree, fn, *counts):
+        if not n_pad:
+            return tree
+        return kwargs_from_numpy(fn(kwargs_to_numpy(tree), *counts,
+                                    n_sources), device)
+
     def run_fit(kwargs_start, kwargs_fixed, method, n_iter, loss_kwargs,
                 lr, schedule, checkpoint=None):
-        params = Params(kwargs_start, kwargs_fixed, kwargs_up, kwargs_down)
-        loss = Loss(data_t, model, params, var_t,
-                    irfft_backend=irfft_backend, **loss_kwargs)
+        params = Params(
+            padded(kwargs_start, pad_epoch_kwargs, n_epochs, n_pad),
+            padded(kwargs_fixed, pad_epoch_kwargs, n_epochs, n_pad),
+            kwargs_up, kwargs_down)
+        loss = Loss(data_fit, model_fit, params, var_fit,
+                    irfft_backend=irfft_backend, **sharded, **loss_kwargs)
         optim = Optimizer(loss, params, method=method)
         optim.minimize(n_iter, init_learning_rate=lr,
                        schedule_learning_rate=schedule,
                        checkpoint_path=checkpoint,
                        checkpoint_every=checkpoint_every,
-                       checkpoint_inputs_digest=checkpoint_inputs_digest)
-        return params.best_fit_values(as_kwargs=True), optim
+                       checkpoint_inputs_digest=checkpoint_inputs_digest,
+                       checkpoint_share=share)
+        return padded(params.best_fit_values(as_kwargs=True),
+                      strip_epoch_kwargs, n_epochs, n_pad), optim
 
     # ---- stage 1: only dx, dy and fluxes free -------------------------
     kwargs_fixed_1 = _copy_tree(kwargs_init)
@@ -235,7 +302,7 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
 
     W = t(noise_weights) if noise_weights is not None else propagate_noise(
         model, noise_t, num_samples=NOISE_SAMPLES, seed=NOISE_SEED,
-        irfft_backend=irfft_backend)
+        irfft_backend=irfft_backend, group=group)
 
     def run_stage2():
         return run_fit(
@@ -266,7 +333,6 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
     # ---- exact GLS flux polish, errors, per-frame chi2 -----------------
     with torch.no_grad():
         kwargs_final = linear_flux_solve(kwargs_final, data_t, var_t, model)
-        n_sources = model.n_sources
         fluxes = kwargs_final["kwargs_analytic"]["a"].reshape(
             n_epochs, n_sources) * scale
         errors = get_flux_uncertainties(kwargs_final, noise_t, model) \
@@ -537,8 +603,6 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
     if not (user_config.get("roi_model_regularization", {}) or {}):
         logger.warning("No background regularization params in config: "
                        "using defaults.")
-    logger.info("Fitting on one device: the epoch mesh over several "
-                "devices is not ported (ROADMAP.md queue 1 item 3).")
 
     # mid-fit checkpointing of stage 2, keyed by the footprint hash and
     # opt-in via deconv_checkpoint_every; fit_roi deletes the file on

@@ -16,7 +16,10 @@ from ..core.optimize import CheckpointMismatch
 def run_discarding_stale_checkpoint(fn, checkpoint_path, logger):
     """Call ``fn()``; on a :class:`CheckpointMismatch`, delete the
     checkpoint and call it once more. Any other error propagates, and so
-    does the refusal when there is no checkpoint path."""
+    does the refusal when there is no checkpoint path. A sharded fit's
+    ranks refuse together (the refusal carries their ``share``,
+    ``parallel.batch.CheckpointShare``): global rank 0 alone deletes the
+    file, between two barriers."""
     try:
         return fn()
     except CheckpointMismatch as e:
@@ -24,5 +27,11 @@ def run_discarding_stale_checkpoint(fn, checkpoint_path, logger):
             raise
         logger.warning(
             f"Stale mid-fit checkpoint discarded, restarting fit: {e}")
-        Path(checkpoint_path).unlink(missing_ok=True)
+        share = e.share
+        if share is not None:
+            share.barrier()
+        if share is None or share.is_writer:
+            Path(checkpoint_path).unlink(missing_ok=True)
+        if share is not None:
+            share.barrier()
         return fn()

@@ -364,8 +364,7 @@ def test_sanitisation_of_nan_data_and_psf(scene):
 def test_entry_point_defaults_and_deferred_options(scene):
     """The fit runs on the card unless asked (no CPU fallback: here it
     raises), ``fetch="device"`` returns tensors and refuses a checkpoint
-    path, and the option that is not ported raises and names its
-    ROADMAP.md item."""
+    path, and a mesh that is not a ``DeviceMesh`` is refused."""
     args = (scene["data"], scene["sigma"], scene["psf"], S)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
@@ -377,7 +376,7 @@ def test_entry_point_defaults_and_deferred_options(scene):
     with pytest.raises(ValueError, match="fetch='device'"):
         tbatched.fit_stars_batched(*args, device="cpu", fetch="device",
                                    checkpoint_path="star.ckpt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tbatched.fit_stars_batched(*args, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="irfft_backend"):
         tbatched.fit_stars_batched(*args, device="cpu", irfft_backend="mxu")
