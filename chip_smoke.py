@@ -31,10 +31,12 @@ prints no result:
 3d. the star photometry's shapes: K2 forward and backward with a per-star
    background (G = 32 groups of 100 epochs, n 24, L 96: 3200 render
    epochs) against the plain twins at phase 3b's bar and timed beside
-   their bounds (which count G background planes); K2 with one group
-   against the shared plane, to the bit; K1 at (m 48, batch 32), the l1
-   term of 32 stars, and (48, 6400), their noise weights, against the
-   twin and timed as in phase 3;
+   their bounds (which count G background planes); the same at phase
+   15a's single star (one shared background plane (L, Lh), 100 epochs,
+   n 24); K2 with one group against the shared plane, to the bit; K1 at
+   (m 48, batch 32), the l1 term of 32 stars, (48, 6400), their noise
+   weights, (48, 1), the single star's l1 term, and (48, 200), its noise
+   weights, against the twin and timed as in phase 3;
 4. a small scene (16 epochs, 32 px, s = 2, 4 sources, noise 0.03):
    ``fit_roi`` on the card through the kernels against ``fit_roi`` on the
    CPU through the plain twins, at the shipped recipe: fluxes within
@@ -134,7 +136,9 @@ prints no result:
    ``extract_stamp`` and ``mask_cutout`` of 32 px stamps for 200 stars;
    >= 95 % of the stars found within 0.5 px, the transform within
    0.05 px, >= 90 % of the hit pixels masked; each body's wall beside the
-   card line.
+   card line (the background and the cosmics run the host C++ of
+   ``native/`` when it loads; its first use, which builds it, is timed
+   apart before them).
 13. the port's pipeline shell: the synthetic scene of
    tests/test_e2e_pipeline.py (3 frames of 160 px, 8 stars, 2 blended ROI
    sources, its Gaia fixture and config; ``write_e2e_scene``, from
@@ -176,12 +180,45 @@ prints no result:
    come back on a JSON line; a rank that fails or outlives its timeout
    fails the phase.
 
+15. the notebook API (the JAX package's top-level names) and the host
+   C++ of ``native/``:
+15a. ``do_one_star_forward_modelling`` on the first star of phase 9's
+   bucket (100 epochs, 24 px, s 2, 2000 iterations) with the background
+   fixed, on cuFFT and on matmul, each against ``fit_stars_batched`` of
+   that star alone at the same budget (fluxes, chi2 per frame and errors
+   within ``SINGLE_VS_BATCHED`` relative; K1 forward once an iteration,
+   the l1 term of the fixed background as in JAX, and nothing else);
+   then with its default starlet background on matmul: finite outputs, a
+   mean reduced chi2 in [0.9, 1.1], exactly K1 2001 forward / 2000
+   adjoint and K2 2000 each way, and the walls; and that fit against the
+   same call on the CPU through the plain twins (fluxes, chi2 per frame
+   and errors within ``SINGLE_CARD_VS_CPU`` relative), with its floor
+   beside it: the card fit's gap to the card fit of the data moved one
+   ulp;
+15b. ``Optimizer.minimize`` on that star's problem (cuFFT, background
+   fixed): ``return_param_history`` over 200 iterations (the snapshots'
+   iterations JAX's ring rule; the history bit-equal to the plain
+   loop's), ``stop_at_loss_increase`` at lr 0.5 without a schedule and
+   ``min_iterations`` 5 (``stopped_at`` in [5, 200), the tail constant
+   to the bit), and with no option set the plain ``run_adabelief`` to
+   the bit;
+15c. ``FisherCovariance`` on phase 5b's ROI-100 fit: the flux sigmas
+   bit-equal to ``get_flux_uncertainties`` of the same kwargs and noise,
+   within 1e-5 of the fit's own errors, and every other leaf NaN;
+15d. ``native.load()`` on the card's host (None fails: the host has
+   g++), then on phase 12's frame ``background_mesh`` (the example
+   config's 3 x 3 boxes), ``extract_sources`` (its threshold and area)
+   and ``detect_cosmics`` (the 32 px stamps of phase 12's first 200
+   stars) against their numpy twins at the JAX package's bars (1e-5, the
+   same catalogue rows, the cosmics to the bit), with the walls of both.
+
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate of the units that can run them, from the shapes of this run) and
 its launches over every run of the main path (phases 5, 5b, 7, 7b, 9 to
-9d, 10, 10b, 11's pipelined runs, 13's pipeline run, 14a and both ranks
-of 14b), and, last, the device line. There is no CPU path: without a card the script fails.
+9d, 10, 10b, 11's pipelined runs, 13's pipeline run, 14a, both ranks
+of 14b and 15a), and, last, the device line. There is no CPU path:
+without a card the script fails.
 """
 
 import json
@@ -362,7 +399,8 @@ def phase_kernels(torch, starlet_cuda, plain):
 def phase_k1_at(torch, starlet_cuda, plain, card, phase, m, batch):
     """K1 forward and adjoint at (m, batch) against the twin, timed from a
     CUDA graph: 3c at the frame-batched PSF fit's shape (m 128, 16
-    frames), 3d at the star fit's (m 48, 32 stars; 6400 noise samples)."""
+    frames), 3d at the star fit's (m 48, 32 stars; 6400 noise samples)
+    and the single star's (m 48, one star; 200 noise samples)."""
     n_scales = plain.n_starlet_scales(m)
     cluster = starlet_cuda.cluster_for(torch.device("cuda"), m, batch)
     gen = torch.Generator().manual_seed(batch)
@@ -581,40 +619,57 @@ def phase_k2(torch, k2_cuda, twin, setup_model, make_roi_scene, card):
     return records
 
 
-def phase_k2_stars(torch, k2_cuda, twin, star_k2_operands, roi, card):
-    """3d: K2 with a per-star background at the full star shape against
-    its plain twins, and one group against the shared plane to the bit
-    (``roi``: phase 3b's ROI-100 operands and cotangent). Returns the
-    largest differences."""
-    G = 32
-    ops, g = star_k2_operands(G, 100, 24, "cuda", seed=G)
+def k2_against_twin(torch, k2_cuda, twin, ops, g, n_groups, label, card,
+                    errs):
+    """K2 forward and backward on ``ops`` (cotangent ``g``, ``n_groups``
+    background groups, None for one shared plane) against the plain
+    twins at phase 3b's bar, timed beside their bounds; the largest
+    difference of each goes into ``errs``."""
     bwd_ops = (*ops[:8], *ops[10:])
-    errs = {}
     for name, kernel, plain in (
             ("fused_render_forward", lambda: [k2_cuda.forward(*ops)],
              lambda: [twin.render_plain(*ops)]),
             ("fused_render_backward",
-             lambda: k2_cuda.backward(g, *bwd_ops, n_groups=G),
-             lambda: twin.render_backward_plain(g, *bwd_ops, n_groups=G))):
+             lambda: k2_cuda.backward(g, *bwd_ops, n_groups=n_groups),
+             lambda: twin.render_backward_plain(g, *bwd_ops,
+                                                n_groups=n_groups))):
         outs = kernel()
         torch.cuda.synchronize()
         err, rel = 0.0, []
         for got, want in zip(outs, plain()):
             diff = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            check(diff <= K2_TOL * scale, f"{name} G={G}: max|diff| "
+            check(diff <= K2_TOL * scale, f"{name} {label}: max|diff| "
                   f"{diff:.3e} > {K2_TOL * scale:.3e}")
             err = max(err, diff)
             rel.append(f"{diff / scale:.2e}")
         ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
         (bound_ms, bound_by), (fp32_ms, _), flops = k2_bounds(
             ops, name.endswith("backward"), True)
-        errs[name] = err
-        say("3d", f"{name} stars: G={G} x 100 epochs, n 24, L 96: max|diff| "
-            f"{err:.3e} (/ max|plain| per output: {', '.join(rel)}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by}; fp32 bound {fp32_ms:.4f} ms), {bound_ms / ms:.1%} "
-            f"of it; {flops / ms * 1e-9:.2f} TFLOP/s (card {card})")
+        errs[name] = max(errs.get(name, 0.0), err)
+        say("3d", f"{name} {label}, n 24, L 96: max|diff| {err:.3e} (/ "
+            f"max|plain| per output: {', '.join(rel)}); kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}; fp32 bound {fp32_ms:.4f} ms), "
+            f"{bound_ms / ms:.1%} of it; {flops / ms * 1e-9:.2f} TFLOP/s "
+            f"(card {card})")
+
+
+def phase_k2_stars(torch, k2_cuda, twin, star_k2_operands, roi, card):
+    """3d: K2 against its plain twins at the star shapes: a per-star
+    background at the full bucket (G 32 x 100 epochs), and the single
+    star of phase 15a (100 epochs, one shared plane (L, Lh), as its fit
+    renders it); then one group against the shared plane to the bit
+    (``roi``: phase 3b's ROI-100 operands and cotangent). Returns the
+    largest differences."""
+    errs = {}
+    ops, g = star_k2_operands(32, 100, 24, "cuda", seed=32)
+    k2_against_twin(torch, k2_cuda, twin, ops, g, 32,
+                    "stars: G=32 x 100 epochs", card, errs)
+    ops, g = star_k2_operands(1, 100, 24, "cuda", seed=1)
+    shared = (*ops[:8], ops[8][0], ops[9][0], *ops[10:])
+    k2_against_twin(torch, k2_cuda, twin, shared, g, None,
+                    "single star: 100 epochs, one shared plane", card, errs)
     roi_ops, roi_g = roi
     one = (*roi_ops[:8], roi_ops[8][None], roi_ops[9][None], *roi_ops[10:])
     same = torch.equal(k2_cuda.forward(*one), k2_cuda.forward(*roi_ops))
@@ -1254,7 +1309,11 @@ def phase_front(np, card, size=FRONT["size"], grid=FRONT["grid"],
     of the first ``n_hits`` stars. Checks: >= 95 % of the stars found
     within 0.5 px, the transform within 0.05 px over the frame, >= 90 %
     of the cosmic-ray pixels masked. Prints each body's wall beside the
-    card line (host work: numpy and scipy, no kernel of ours)."""
+    card line (host work, no kernel of ours: the background and the
+    stamps' cosmics in the host C++ of ``native/`` when it loads, whose
+    first use builds it before the timers; the segmentation and moments
+    in numpy and scipy)."""
+    from lightcurver_tpu_torch import native
     from lightcurver_tpu_torch.io.fits import Header
     from lightcurver_tpu_torch.io.wcs import TanWCS
     from lightcurver_tpu_torch.processes.background_estimation import \
@@ -1266,6 +1325,9 @@ def phase_front(np, card, size=FRONT["size"], grid=FRONT["grid"],
     from lightcurver_tpu_torch.utilities.pattern_matching import (
         SimilarityTransform, find_transform)
 
+    t0 = time.perf_counter()
+    cxx = native.load() is not None
+    first_use = time.perf_counter() - t0
     frame, stars, hits, hit_star = front_frame(np, size=size, grid=grid,
                                                n_hits=n_hits)
     walls = {}
@@ -1321,7 +1383,9 @@ def phase_front(np, card, size=FRONT["size"], grid=FRONT["grid"],
     hits_masked = float(masked.mean())
 
     say(12, f"front host bodies, {size} x {size} frame, {len(stars)} stars, "
-        f"{len(hits)} cosmic-ray pixels (card {card}): "
+        f"{len(hits)} cosmic-ray pixels (card {card}; host C++ "
+        f"{'on, first use' if cxx else 'off, numpy twins, load'} "
+        f"{first_use:.3f} s): "
         + ", ".join(f"{name} {wall:.3f} s" for name, wall in walls.items()))
     say(12, f"{len(rows)} sources, {recovered:.1%} of the stars within "
         f"{FRONT_STAR_PX} px; transform off by {transform_px:.2e} px over "
@@ -1725,6 +1789,17 @@ SHARD_SCENES = dict(roi=(100, 64, 0.3), psf=(16, 8, 64),
                     stars=(32, 100, 24))
 SHARD_TIMEOUT_S = 420
 
+# phase 15: the single star's budget (phase 9's), its bar against the
+# batched fit of the same star (JAX's test holds 1e-3, as the CPU test
+# does; on an H100 the two paths measured 2.4e-7 to 4.8e-7 apart, so
+# 1e-5 keeps a plumbing fault from hiding under the bar), its bar against
+# the same fit on the CPU (on an H100 1.4e-6 apart in the fluxes, the
+# card fit's one-ulp floor 2.4e-7), and the optimizer options' budget
+SINGLE_STAR_ITERS = 2000
+SINGLE_VS_BATCHED = 1e-5
+SINGLE_CARD_VS_CPU = 1e-5
+OPTION_ITERS = 200
+
 
 def launch_counters(starlet_cuda, k2):
     """``counters(reset=False)``: with ``reset`` sets K1's and K2's launch
@@ -2043,6 +2118,316 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card):
     return total
 
 
+def one_ulp(np, data, seed):
+    """``data`` (float32) with each pixel moved one ulp up or down at
+    random."""
+    up = np.random.default_rng(seed).random(data.shape) < 0.5
+    toward = np.where(up, np.float32(np.inf), np.float32(-np.inf))
+    return np.nextafter(data, toward.astype(data.dtype))
+
+
+def relative_gaps(np, a, b, index=None):
+    """Max relative gap of fluxes, chi2 per frame and errors of two fits
+    (``b[key][index]`` with an ``index``: a batched fit's star)."""
+    return {key: float(np.max(np.abs(
+        a[key] / (b[key] if index is None else b[key][index]) - 1)))
+        for key in ("fluxes", "chi2_per_frame", "fluxes_uncertainties")}
+
+
+def single_star_args(sc, star=0):
+    return sc["data"][star], sc["sigma"][star], sc["psf"][star], sc["s"]
+
+
+def phase_single_star(np, torch, sc, counters, card):
+    """15a: the single-star fit against the batched fit of the same star,
+    on both renders with the background fixed, then with the starlet
+    background on matmul, held against the same call on the CPU (the
+    plain twins) beside its floor (its gap to the card's fit of the data
+    moved one ulp); returns the (K1 forward, K1 adjoint, K2 forward, K2
+    backward) launches of the single-star runs counted on the main path
+    (not the floor's). With the
+    background fixed its loss still takes the starlet l1 of the fixed
+    (zero) background, as JAX's does: K1 forward once an iteration, no
+    adjoint; the batched fit skips that term and launches nothing."""
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
+    from lightcurver_tpu_torch.processes.star_photometry import \
+        do_one_star_forward_modelling
+
+    data, sigma, psf, s = single_star_args(sc)
+    n_iter = SINGLE_STAR_ITERS
+
+    def timed(fn, *args, **kw):
+        counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counters()[:4]
+
+    total = (0, 0, 0, 0)
+    for backend in ("fft", "matmul"):
+        single, wall, runs = timed(
+            do_one_star_forward_modelling, data, sigma, psf, s,
+            n_iter=n_iter, starlet_global_background=False,
+            irfft_backend=backend)
+        batched, wall_b, runs_b = timed(
+            fit_stars_batched, data[None], sigma[None], psf[None], s,
+            n_iter=n_iter, mesh=None, irfft_backend=backend)
+        gaps = relative_gaps(np, single, batched, 0)
+        say("15a", f"single star ({data.shape[0]} epochs, {data.shape[-1]} "
+            f"px, s {s}, {n_iter} "
+            f"iterations, background fixed, {backend}): {wall:.3f} s wall, "
+            f"the batched fit of the same star {wall_b:.3f} s (card {card});"
+            " max relative gap single vs batched: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+        for key, gap in gaps.items():
+            check(gap <= SINGLE_VS_BATCHED, f"single star ({backend}): "
+                  f"{key} differs from the batched fit by {gap:.3e}")
+        check(runs == (n_iter, 0, 0, 0) and runs_b == (0, 0, 0, 0),
+              f"single star ({backend}): launches {runs} / batched "
+              f"{runs_b}, {(n_iter, 0, 0, 0)} / none expected with the "
+              "background fixed")
+        total = tuple(a + b for a, b in zip(total, runs))
+
+    out, wall, runs = timed(do_one_star_forward_modelling, data, sigma, psf,
+                            s, n_iter=n_iter, irfft_backend="matmul")
+    chi2 = float(np.mean(out["chi2_per_frame"]))
+    dmag = np.abs(2.5 * np.log10(out["fluxes"] / sc["a_true"][0]))
+    say("15a", f"single star, starlet background, matmul: {wall:.3f} s "
+        f"wall (card {card}); K1 forward {runs[0]}, adjoint {runs[1]}; K2 "
+        f"forward {runs[2]}, backward {runs[3]}; mean reduced chi2 "
+        f"{chi2:.4f}; median |dmag| vs a_true {np.median(dmag) * 1e3:.3f} "
+        "mmag")
+    finite = all(np.all(np.isfinite(out[key])) for key in (
+        "fluxes", "fluxes_uncertainties", "chi2_per_frame", "residuals",
+        "deconvolved_image", "starlet_background", "loss_curve"))
+    check(finite, "single star (starlet, matmul): non-finite outputs")
+    check(0.9 <= chi2 <= 1.1, f"single star (starlet, matmul): mean reduced "
+          f"chi2 {chi2} outside [0.9, 1.1]")
+    want = (n_iter + 1, n_iter, n_iter, n_iter)
+    check(runs == want, f"single star (starlet, matmul): launches {runs}, "
+          f"{want} expected")
+
+    t0 = time.perf_counter()
+    on_cpu = do_one_star_forward_modelling(
+        data, sigma, psf, s, n_iter=n_iter, irfft_backend="matmul",
+        device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    moved = do_one_star_forward_modelling(
+        one_ulp(np, data, 1), sigma, psf, s, n_iter=n_iter,
+        irfft_backend="matmul")
+    gaps, floor = relative_gaps(np, out, on_cpu), relative_gaps(np, moved,
+                                                                out)
+    say("15a", f"single star, starlet background, matmul, card vs cpu "
+        f"({wall_cpu:.3f} s on the card's host CPU; card {card}): max "
+        "relative gap "
+        + ", ".join(f"{k} {v:.3e} (one-ulp floor {floor[k]:.3e})"
+                    for k, v in gaps.items()))
+    for key, gap in gaps.items():
+        check(gap <= SINGLE_CARD_VS_CPU, f"single star (starlet, matmul): "
+              f"{key} on the card differs from the CPU fit by {gap:.3e}")
+    return tuple(a + b for a, b in zip(total, runs))
+
+
+def snapshot_iterations(n_iter, slots):
+    """JAX's snapshot ring: every ``max(1, n // slots)`` iterations into
+    slot ``min(it // every, slots - 1)`` of ``min(slots, n)``."""
+    every, n_slots = max(1, n_iter // slots), min(slots, n_iter)
+    out = [0] * n_slots
+    for it in range(0, n_iter, every):
+        out[min(it // every, n_slots - 1)] = it
+    return out
+
+
+def phase_optimizer_options(np, torch, sc, card):
+    """15b: the Optimizer's options on the single star's problem (cuFFT,
+    background fixed, as ``do_one_star_forward_modelling`` builds it)."""
+    from lightcurver_tpu_torch import Loss, Optimizer, Params, setup_model
+    from lightcurver_tpu_torch.core import optimize
+
+    data, sigma, psf, s = single_star_args(sc)
+    scale = float(np.max(data))
+    data, sigma = data / scale, sigma / scale
+    model, ki, ku, kd, kf = setup_model(
+        data, sigma**2, psf, np.array([0.0]), np.array([0.0]), s,
+        np.sum(data, axis=(1, 2)), device="cuda")
+
+    def problem():
+        params = Params(ki, kf, ku, kd)
+        loss = Loss(data, model, params, sigma**2)
+        return params, loss, Optimizer(loss, params)
+
+    n_iter = OPTION_ITERS
+    t0 = time.perf_counter()
+    params, loss, optim = problem()
+    _, _, plain, _ = optim.minimize(max_iterations=n_iter,
+                                    restart_from_init=True)
+    best, _, hist = optimize.run_adabelief(
+        loss.loss_fn, params.free0, params.lower, params.upper, n_iter)
+    same = np.array_equal(plain["loss_history"], hist) and all(
+        torch.equal(params.best_fit_values(False)[g][k], best[g][k])
+        for g in best for k in best[g])
+    _, _, ph, _ = problem()[2].minimize(max_iterations=n_iter,
+                                        restart_from_init=True,
+                                        return_param_history=True)
+    iters = ph["param_history_iterations"].tolist()
+    want = snapshot_iterations(n_iter, optimize.N_PARAM_SNAPSHOTS)
+    a_hist = ph["param_history"]["kwargs_analytic"]["a"]
+    _, _, st, _ = problem()[2].minimize(
+        max_iterations=n_iter, init_learning_rate=0.5,
+        schedule_learning_rate=False, restart_from_init=True,
+        stop_at_loss_increase=True, min_iterations=5)
+    wall = time.perf_counter() - t0
+    stop, tail = st["stopped_at"], st["loss_history"][st["stopped_at"] + 1:]
+    say("15b", f"Optimizer options on the single star ({n_iter} iterations "
+        f"each, cuFFT, background fixed; {wall:.2f} s for four runs, card "
+        f"{card}): no option = run_adabelief to the bit: {same}; "
+        f"param history {a_hist.shape[0]} snapshots, iterations "
+        f"{iters[:3]}...{iters[-3:]} (JAX's rule: {iters == want}), its loss "
+        f"history the plain one's to the bit: "
+        f"{np.array_equal(ph['loss_history'], hist)}; stop at loss increase "
+        f"(lr 0.5, min_iterations 5): stopped_at {stop}, tail of "
+        f"{tail.size} constant: {bool(np.all(tail == tail[:1]))}")
+    check(same, "minimize without options is not run_adabelief's bits")
+    check(iters == want, f"snapshot iterations {iters}, {want} expected")
+    check(a_hist.shape == (len(want), data.shape[0]), "param history of "
+          f"shape {a_hist.shape}")
+    check(np.array_equal(ph["loss_history"], hist), "the history with "
+          "return_param_history is not the plain loop's")
+    check(5 <= stop < n_iter, f"stopped_at {stop} outside [5, {n_iter})")
+    check(bool(np.all(tail == tail[:1])), "the tail after the stop moves")
+
+
+def phase_fisher(np, torch, out, scene, card):
+    """15c: FisherCovariance on a ROI-100 fit's parameters."""
+    from lightcurver_tpu_torch import (FisherCovariance, Loss, Optimizer,
+                                       Params, get_flux_uncertainties)
+    from lightcurver_tpu_torch.core.params import kwargs_from_numpy
+
+    scale, model = out["scale"], out["model"]
+    data = np.array(scene["data"], dtype=np.float32)
+    noise = np.array(scene["sigma_2"] ** 0.5, dtype=np.float32)
+    data /= scale
+    noise /= scale
+    params = Params(kwargs_from_numpy(out["kwargs"], "cuda"))
+    loss = Loss(data, model, params, noise**2)
+    t0 = time.perf_counter()
+    sigmas = FisherCovariance(params, Optimizer(loss, params),
+                              diagonal_only=True).get_kwargs_sigma()
+    wall = time.perf_counter() - t0
+    flux = sigmas["kwargs_analytic"]["a"]
+    ref = get_flux_uncertainties(params.best_fit_values(), None, None, None,
+                                 torch.sqrt(loss.sigma_2), model)
+    rel = float(np.max(np.abs(flux * scale / out["flux_errors"].ravel()
+                              - 1)))
+    others = [(g, k) for g in sigmas for k in sigmas[g]
+              if (g, k) != ("kwargs_analytic", "a")]
+    all_nan = all(np.all(np.isnan(sigmas[g][k])) for g, k in others)
+    say("15c", f"FisherCovariance on phase 5b's ROI-100 fit ({wall:.3f} s, "
+        f"card {card}): {flux.size} flux sigmas, bit-equal to "
+        f"get_flux_uncertainties: {np.array_equal(flux, ref)}, max relative "
+        f"gap to the fit's errors {rel:.2e}; {len(others)} other leaves, "
+        f"all NaN: {all_nan}")
+    check(np.array_equal(flux, ref), "FisherCovariance's flux sigmas are not "
+          "get_flux_uncertainties' bits")
+    check(rel <= 1e-5, f"FisherCovariance vs the fit's errors: {rel:.2e}")
+    check(all_nan and others, "FisherCovariance: a leaf other than the "
+          "fluxes is not NaN")
+
+
+def phase_native(np, card):
+    """15d: the host C++ against its numpy twins on phase 12's frame;
+    returns the walls {body: (C++ s, numpy s)}."""
+    from lightcurver_tpu_torch import native
+    from lightcurver_tpu_torch.io.fits import Header
+    from lightcurver_tpu_torch.io.wcs import TanWCS
+    from lightcurver_tpu_torch.processes import cosmics
+    from lightcurver_tpu_torch.processes.background_estimation import (
+        _mesh_stats_numpy, subtract_background)
+    from lightcurver_tpu_torch.processes.cutout_making import extract_stamp
+    from lightcurver_tpu_torch.processes.star_extraction import (
+        _moments, _segment)
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    t_load = time.perf_counter() - t0
+    check(lib is not None, "native.load() returned None on the card's host "
+          "(it has g++)")
+    frame, stars, _, _ = front_frame(np)
+    size, walls = frame.shape[0], {}
+
+    def both(name, fast, slow):
+        t0 = time.perf_counter()
+        a = fast()
+        t1 = time.perf_counter()
+        b = slow()
+        walls[name] = (t1 - t0, time.perf_counter() - t1)
+        return a, b
+
+    n_boxes = FRONT["n_boxes"]
+    (back, rms), (back_np, rms_np) = both(
+        "background_mesh", lambda: native.background_mesh(frame, n_boxes,
+                                                          n_boxes),
+        lambda: _mesh_stats_numpy(frame, n_boxes, n_boxes))
+    bg_gap = float(max(np.max(np.abs(back - back_np)),
+                       np.max(np.abs(rms - rms_np))))
+
+    data_sub, bkg = subtract_background(frame, n_boxes=n_boxes)
+    variance = bkg.globalrms**2 + np.abs(data_sub) / FRONT["exptime"]
+    image = np.asarray(data_sub, dtype=np.float32)
+
+    def numpy_catalogue():
+        labels, seg = _segment(image, variance, FRONT["threshold"],
+                               FRONT["min_area"])
+        return np.array([[r[k] for k in ("x", "y", "flux", "a", "b", "npix",
+                                         "peak")]
+                         for r in _moments(image, seg, labels)])
+
+    rows, rows_np = both(
+        "extract_sources",
+        lambda: native.extract_sources(image, variance, FRONT["threshold"],
+                                       FRONT["min_area"])[:, :7],
+        numpy_catalogue)
+    same_rows = rows.shape == rows_np.shape and np.allclose(
+        rows, rows_np, rtol=1e-4, atol=1e-3) \
+        and np.array_equal(rows[:, 5], rows_np[:, 5])
+
+    scale = 0.2 / 3600.0
+    wcs = TanWCS(42.2031, 19.22528, (size + 1) / 2, (size + 1) / 2,
+                 [[-scale, 0.0], [0.0, scale]])
+    header = Header()
+    header.update(wcs.to_header_cards())
+    ra, dec = wcs.pixel_to_world(stars[:FRONT["hits"], 0],
+                                 stars[:FRONT["hits"], 1])
+    stamps = [extract_stamp(data_sub, header, FRONT["exptime"],
+                            (float(r), float(d)), FRONT["stamp"],
+                            bkg.globalrms)[:2] for r, d in zip(ra, dec)]
+    kw = FRONT["cosmics"]
+    masks, masks_np = both(
+        "detect_cosmics",
+        lambda: [native.detect_cosmics(st, invar=no**2, **kw)
+                 for st, no in stamps],
+        lambda: [cosmics.detect_cosmics_numpy(st, invar=no**2, **kw)
+                 for st, no in stamps])
+    same_cosmics = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1],
+                                                                     b[1])
+                       for a, b in zip(masks, masks_np))
+    n_masked = sum(int(m.sum()) for m, _ in masks)
+    say("15d", f"native library loaded in {t_load:.2f} s (built at its "
+        f"first use, phase 12); on phase 12's "
+        f"{size} px frame (card's host, card {card}), C++ against numpy: "
+        + ", ".join(f"{name} {c:.4f} s vs {n:.4f} s"
+                    for name, (c, n) in walls.items()))
+    say("15d", f"background grids max |diff| {bg_gap:.2e}; {len(rows)} "
+        f"sources against {len(rows_np)}, the same rows: {same_rows}; "
+        f"{len(stamps)} stamps of {FRONT['stamp']} px, {n_masked} pixels "
+        f"masked, masks and cleaned stamps bit-equal: {same_cosmics}")
+    check(bg_gap <= 1e-5, f"native background differs by {bg_gap:.2e}")
+    check(same_rows, "native extraction: not the numpy twin's catalogue")
+    check(same_cosmics, "native cosmics: not the numpy twin's bits")
+    return walls
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -2135,7 +2520,7 @@ def main():
     errs.append(phase_k2_stars(torch, fused_render_cuda, fused_render,
                                star_k2_operands, roi, card))
     errs += [phase_k1_at(torch, starlet_cuda, plain, card, "3d", 48, batch)
-             for batch in (32, 6400)]
+             for batch in (32, 6400, 1, 200)]
     for found in errs:
         for name, err in found.items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
@@ -2251,14 +2636,21 @@ def main():
     shard_runs = [phase_shard_one(np, torch, fit_roi, scene, out_mm,
                                   counters, card),
                   phase_shard_two(np, torch, counters, work / "shard", card)]
+    t0 = time.perf_counter()
+    single_run = phase_single_star(np, torch, stars, counters, card)
+    phase_optimizer_options(np, torch, stars, card)
+    phase_fisher(np, torch, out_mm, scene, card)
+    phase_native(np, card)
+    say(15, f"phase 15 took {time.perf_counter() - t0:.1f} s")
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,
     # the PSF and star tasks' pipelined buckets, the pipeline run of
     # phase 13 from stamp_extraction (none where h5py is missing), and
-    # the sharded fits of phase 14 (both ranks of 14b)
+    # the sharded fits of phase 14 (both ranks of 14b), and the
+    # single-star fit of phase 15a
     main_runs = star_runs + resumed_runs + task_runs + [pipeline_run] \
-        + shard_runs
+        + shard_runs + [single_run]
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \

@@ -10,8 +10,8 @@ JAX package (``core/``, ``core/deconv/``, ``core/psf/``, ``ops/``,
 counterpart in its docstring, and the tests hold every module against
 that counterpart on the CPU. The host modules (``io/``, ``structure/``,
 ``pipeline/``, ``plotting/``, ``scripts/``, most of ``utilities/``) are
-copies of the functions the port calls; the front's numerics are the
-numpy/scipy twins of the JAX package's host C++.
+copies of the functions the port calls; the front's numerics are a copy
+of the JAX package's host C++ (``native/``) and its numpy/scipy twins.
 
 At import the package needs torch, numpy, scipy and the standard library
 only: never ``jax`` and never ``lightcurver_tpu``, so it runs on a machine
@@ -70,7 +70,34 @@ Entry points, each on the card unless the caller passes ``device="cpu"``:
   ``torchrun``, after
   :func:`lightcurver_tpu_torch.parallel.distributed.initialize_distributed`):
   their ``mesh="auto"`` shards ROI epochs, PSF frames and stars
-  (``parallel/``).
+  (``parallel/``);
+- the notebook API, re-exported here under the JAX package's top-level
+  names: ``build_psf``, ``build_psf_batched``, ``apply_distortion``,
+  ``setup_model``, ``DeconvModel``, ``Loss``, ``Prior``,
+  ``fit_stars_batched``, ``Params``, ``Optimizer`` (with its
+  ``stop_at_loss_increase``, ``min_iterations`` and
+  ``return_param_history``), ``CheckpointMismatch``,
+  ``propagate_noise``, ``get_flux_uncertainties`` and
+  ``FisherCovariance``, each with the JAX function's positional
+  parameters; the single-star fit is
+  :func:`lightcurver_tpu_torch.processes.star_photometry.do_one_star_forward_modelling`.
+
+The front's background, extraction and cosmics run the host C++ of
+``native/`` (built by ``g++`` at first use into ``build/``) when it
+loads, and their numpy twins otherwise.
 """
 
 __version__ = "0.1.0"
+
+from .core.psf.build import build_psf                       # noqa: F401
+from .core.psf.batched import build_psf_batched             # noqa: F401
+from .core.psf.distortion import apply_distortion           # noqa: F401
+from .core.deconv.model import setup_model, DeconvModel     # noqa: F401
+from .core.deconv.loss import Loss, Prior                   # noqa: F401
+from .core.deconv.batched import fit_stars_batched          # noqa: F401
+from .core.params import Params                             # noqa: F401
+from .core.optimize import (Optimizer,                      # noqa: F401
+                            CheckpointMismatch)
+from .core.noise import propagate_noise                     # noqa: F401
+from .core.fisher import (get_flux_uncertainties,           # noqa: F401
+                          FisherCovariance)

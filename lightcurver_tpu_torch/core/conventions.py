@@ -22,3 +22,8 @@ _FWHM_OVER_SIGMA = 2.0 * math.sqrt(2.0 * math.log(2.0))
 def fwhm_to_sigma(fwhm):
     """Convert a Gaussian FWHM to its standard deviation (same units)."""
     return fwhm / _FWHM_OVER_SIGMA
+
+
+def sigma_to_fwhm(sigma):
+    """Convert a Gaussian standard deviation to its FWHM (same units)."""
+    return sigma * _FWHM_OVER_SIGMA

@@ -91,10 +91,38 @@ def grid_center_phase(m, device=None, dtype=torch.float32):
     return torch.complex(torch.cos(ang), torch.sin(ang))
 
 
+def shift_phase(m, sx, sy, device=None, dtype=torch.float32):
+    """Phase ramp translating by (sx, sy) FINE pixels (real shifts): a
+    complex tensor that broadcasts against rfft2 output at L = 2m. ``sx``
+    and ``sy`` are scalars or tensors of the same leading batch dims; two
+    trailing frequency axes are appended."""
+    fy, fx = freq_grids(m, device=device, dtype=dtype)
+    sx = torch.as_tensor(sx, dtype=dtype, device=device)[..., None, None]
+    sy = torch.as_tensor(sy, dtype=dtype, device=device)[..., None, None]
+    ang = -2.0 * math.pi * (fy * sy + fx * sx)
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
 def psf_fft(t):
     """rfft2 of zero-padded PSF arrays ``(..., m, m)`` (complex64)."""
     L = pad_len(t.shape[-1])
     return torch.fft.rfft2(t, s=(L, L))
+
+
+def psf_fft_for_grid(t):
+    """A PSF's transform ready to convolve gridded images: the centre
+    phase folded in, so the convolution is peak-aligned (module doc)."""
+    return psf_fft(t) * grid_center_phase(t.shape[-1], t.device)
+
+
+def convolve_grid(img, t_hat_grid):
+    """Linear 'same' convolution of (..., m, m) fine-grid images with a
+    :func:`psf_fft_for_grid` transform: each pixel spawns a peak-aligned
+    copy of the PSF. The inverse goes through :func:`hermitian_irfft2`,
+    as every render of the port does."""
+    m = img.shape[-1]
+    L = pad_len(m)
+    return render_from_fft(torch.fft.rfft2(img, s=(L, L)) * t_hat_grid, m)
 
 
 def hermitian_irfft2(total_hat, L):

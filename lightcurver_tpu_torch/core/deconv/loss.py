@@ -120,12 +120,19 @@ class Loss:
                  regularization_strength_pts_source=0.0,
                  regularization_strength_flux_uniformity=0.0,
                  W=None, prior=None, epoch_weights=None,
-                 irfft_backend="fft", epochs=None, group=None):
+                 irfft_backend=None, starlet_backend=None, *, epochs=None,
+                 group=None):
         """
-        ``epochs``: ``(start, stop)``, the epochs whose chi2 this rank
-        computes (default: all); ``group``: the process group over whose
-        ranks the loss is summed (default: none, one process).
+        ``irfft_backend``: "fft" (None: the default) or "matmul".
+        ``starlet_backend`` is accepted and unused: JAX's global switch
+        between its Pallas and XLA starlets; here a CUDA tensor runs K1
+        and a CPU one its plain twin. ``epochs``: ``(start, stop)``, the
+        epochs whose chi2 this rank computes (default: all); ``group``:
+        the process group over whose ranks the loss is summed (default:
+        none, one process).
         """
+        del starlet_backend
+        irfft_backend = irfft_backend or "fft"
         model = self.model = deconv_class
         self.params = param_class
         device, m = model.device, model.m

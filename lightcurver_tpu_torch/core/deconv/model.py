@@ -71,7 +71,7 @@ class DeconvModel:
     """
 
     def __init__(self, psf, subsampling_factor, image_size, n_epochs,
-                 n_sources, n_groups=None, dft_mats=None):
+                 n_sources, *, n_groups=None, dft_mats=None):
         """
         Args:
             psf: (N, mp, mp) float32 tensor, per-epoch narrow PSFs on the
@@ -358,13 +358,14 @@ class DeconvModel:
         return img, h
 
 
-def setup_model(data, sigma_2, psf, xs, ys, subsampling_factor,
+def setup_model(data, sigma_2, s, xs, ys, subsampling_factor,
                 initial_a=None, astrometric_bound=5.0, translation_bound=5.0,
-                device="cuda"):
+                *, device="cuda"):
     """Build a DeconvModel and its parameter trees from host arrays.
 
-    Twin of the JAX ``setup_model``: ``data`` (N, n, n), ``psf``
-    (N, mp, mp), ``xs``/``ys`` (M,) centre-origin data-pixel positions,
+    Twin of the JAX ``setup_model``, whose argument names it keeps:
+    ``data`` (N, n, n), ``s`` the narrow PSFs (N, mp, mp), ``xs``/``ys``
+    (M,) centre-origin data-pixel positions,
     ``initial_a`` of length N*M or M (tiled); ``sigma_2`` is unused.
     Returns ``(model, kwargs_init, kwargs_up, kwargs_down, kwargs_fixed)``
     with float32 tensors on ``device``: the card unless the caller asks
@@ -377,7 +378,7 @@ def setup_model(data, sigma_2, psf, xs, ys, subsampling_factor,
     ys = np.atleast_1d(np.asarray(ys, dtype=np.float32))
     n_sources = xs.size
     model = DeconvModel(
-        torch.tensor(np.asarray(psf, dtype=np.float32), device=device),
+        torch.tensor(np.asarray(s, dtype=np.float32), device=device),
         subsampling_factor, image_size, n_epochs, n_sources)
 
     if initial_a is None:

@@ -27,7 +27,8 @@ from ..ops import check_irfft_backend, dft
 from ..ops.starlet_op import starlet_transform
 
 
-def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
+def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None,
+                     n_scales=None):
     """Per-coefficient std of starlet(adjoint(sigma * draws)).
 
     Leading dims B (none for one problem; the star axis S of the star
@@ -41,6 +42,7 @@ def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
         draws: (B..., K, n, n) standard-normal samples.
         dft_mats: ``ops.dft.make_dft_mats(L, m)`` to correlate by matmul
             DFT; None for cuFFT.
+        n_scales: starlet scales J (default ``n_starlet_scales(m)``).
 
     Returns:
         (B..., J + 1, m, m), floored at 1e-12.
@@ -55,7 +57,8 @@ def mc_starlet_noise(sigma, mean_ps_hat, m, s, draws, dft_mats=None):
     else:
         fine_hat = torch.fft.rfft2(fine, s=(L, L))
         back = conv.hermitian_irfft2(fine_hat * conj_ps, L)[..., :m, :m]
-    coeffs = starlet_transform(back.contiguous())     # (B..., K, J+1, m, m)
+    coeffs = starlet_transform(back.contiguous(),
+                               n_scales)      # (B..., K, J+1, m, m)
     return torch.clamp(torch.std(coeffs, dim=-4, correction=0), min=1e-12)
 
 
@@ -68,26 +71,39 @@ def epoch_nanmedian(stack, dim=0):
     return torch.nanquantile(stack, 0.5, dim=dim)
 
 
-def propagate_noise(model, noisemap, num_samples=500, seed=1,
+def propagate_noise(model, noisemap, kwargs, wavelet_type_list=("starlet",),
+                    method="SLIT", num_samples=200, seed=1,
+                    likelihood_type="chi2", verbose=False,
+                    upsampling_factor=None, n_scales=None, *,
                     irfft_backend="fft", group=None):
-    """Starlet noise weights W, (J + 1, m, m), on the model's device.
+    """Starlet noise weights, in the JAX package's (and STARRED's) call
+    form: a list whose one element is W, (n_scales + 1, m, m), on the
+    model's device.
 
     ``noisemap``: (N, n, n) noise sigmas (tensor or array); the per-pixel
-    sigma is their :func:`epoch_nanmedian`. ``irfft_backend``: "fft" or
-    "matmul", as for ``Loss``. With a process ``group`` (an epoch-sharded
-    fit), rank 0 of the group computes W and broadcasts it, so every rank
-    fits with the same bits.
+    sigma is their :func:`epoch_nanmedian`. ``kwargs``,
+    ``wavelet_type_list``, ``method``, ``likelihood_type`` and ``verbose``
+    are accepted and unused, as in JAX. ``upsampling_factor`` defaults to
+    the model's s, ``n_scales`` to ``n_starlet_scales(m)``.
+    ``irfft_backend``: "fft" or "matmul", as for ``Loss``. With a process
+    ``group`` (an epoch-sharded fit), rank 0 of the group computes W and
+    broadcasts it, so every rank fits with the same bits.
     """
+    del kwargs, wavelet_type_list, method, likelihood_type, verbose
     check_irfft_backend(irfft_backend)
+    m = model.m
+    s = int(upsampling_factor) if upsampling_factor else model.s
+    n_scales = n_starlet_scales(m) if n_scales is None else int(n_scales)
     if group is not None:
         if dist.get_rank(group) == 0:
-            W = propagate_noise(model, noisemap, num_samples, seed,
-                                irfft_backend)
+            W, = propagate_noise(model, noisemap, None,
+                                 num_samples=num_samples, seed=seed,
+                                 upsampling_factor=s, n_scales=n_scales,
+                                 irfft_backend=irfft_backend)
         else:
-            W = torch.empty((n_starlet_scales(model.m) + 1, model.m,
-                             model.m), device=model.device)
+            W = torch.empty((n_scales + 1, m, m), device=model.device)
         dist.broadcast(W, group=group, group_src=0)
-        return W
+        return [W]
     noisemap = torch.as_tensor(noisemap, dtype=torch.float32,
                                device=model.device)
     sigma = epoch_nanmedian(noisemap)
@@ -96,8 +112,7 @@ def propagate_noise(model, noisemap, num_samples=500, seed=1,
                         generator=gen, dtype=torch.float32).to(model.device)
     mats = None
     if irfft_backend == "matmul":
-        mats = dft.make_dft_mats(conv.pad_len(model.m), model.m,
-                                 device=model.device)
+        mats = dft.make_dft_mats(conv.pad_len(m), m, device=model.device)
     with torch.no_grad():
-        return mc_starlet_noise(sigma, model.ps_hat.mean(dim=0), model.m,
-                                model.s, draws, mats)
+        return [mc_starlet_noise(sigma, model.ps_hat.mean(dim=0), m, s,
+                                 draws, mats, n_scales)]

@@ -15,8 +15,11 @@ entries, each the loss BEFORE that iteration's update; the best parameters
 are those of the lowest recorded loss. The free tree is flattened into one
 float32 vector, so each optimizer step is a handful of kernels whatever
 the number of leaves; a Python loop takes the place of ``lax.scan``.
-The extended path (stop at loss increase, parameter history) is not
-ported.
+AdaBelief is one loop, :func:`run_adabelief_extended` (JAX's
+``adabelief_scan_extended``); ``Optimizer.minimize``'s
+``stop_at_loss_increase`` and ``return_param_history`` switch on its two
+optional steps, which freeze the parameters and the moments once the loss
+rises after ``min_iterations``, and keep a ring of parameter snapshots.
 
 Mid-fit checkpoints (JAX's ``run_adabelief_checkpointed``): AdaBelief runs
 in segments of ``checkpoint_every`` iterations, and after each the carry
@@ -53,6 +56,8 @@ import time
 
 import numpy as np
 import torch
+
+from .params import kwargs_to_numpy
 
 UNCONVERGED_RLD_THRESHOLD = 0.02
 
@@ -130,6 +135,19 @@ def _adabelief_carry(theta, n_frames=None):
             torch.full(shape, float("inf"), device=theta.device))
 
 
+def _evaluate(loss_fn, spec, theta, best, best_loss):
+    """Loss and gradient at the flat ``theta``, with the best-loss
+    tracking of that (pre-update) point: ``(theta, value, grad, best,
+    best_loss)``, all detached."""
+    x = theta.requires_grad_(True)
+    value = loss_fn(unflatten(x, spec))
+    grad, = torch.autograd.grad(value, x)
+    theta, value = theta.detach(), value.detach()
+    improved = value < best_loss
+    return (theta, value, grad, torch.where(improved, theta, best),
+            torch.where(improved, value, best_loss))
+
+
 def run_adabelief(loss_fn, free0, lower, upper, n_iter,
                   init_learning_rate=1e-3, schedule_learning_rate=True):
     """Projected AdaBelief.
@@ -163,34 +181,107 @@ def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
         (best_free, final_free, loss_history[n_iter]) as
         :func:`run_adabelief`.
     """
+    return run_adabelief_extended(
+        loss_fn, free0, lower, upper, n_iter, init_learning_rate,
+        schedule_learning_rate, checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, inputs_digest=inputs_digest,
+        checkpoint_share=checkpoint_share)[:3]
+
+
+def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
+                           init_learning_rate=1e-3,
+                           schedule_learning_rate=True,
+                           stop_at_loss_increase=False, min_iterations=0,
+                           n_param_snapshots=0, checkpoint_path=None,
+                           checkpoint_every=500, inputs_digest=None,
+                           checkpoint_share=None):
+    """The one projected AdaBelief loop, with the reference's optional
+    semantics (JAX's ``adabelief_scan_extended``) as steps that run only
+    when asked for, so without them it is the plain loop.
+
+    - ``stop_at_loss_increase``: at the first iteration ``it >=
+      min_iterations`` whose loss exceeds the previous iteration's, the
+      parameters and both moments freeze (that iteration's update is
+      discarded), and ``stopped_at`` records ``it`` (``n_iter`` if the
+      loss never rose). The history keeps exactly ``n_iter`` entries: the
+      tail after the stop is the frozen point's loss.
+    - ``n_param_snapshots`` > 0: the parameters after iteration ``it``'s
+      update are kept every ``n_iter // n_param_snapshots`` iterations in
+      a ring of ``min(n_param_snapshots, n_iter)`` slots, slot
+      ``min(it // every, slots - 1)``: when ``n_iter`` is not a multiple,
+      later snapshots overwrite the last slot, as in JAX.
+    - ``checkpoint_path`` and the keywords after it checkpoint the fit as
+      :func:`run_adabelief_checkpointed` says; the two options keep their
+      state outside the checkpointed carry, so with a path they raise
+      ``ValueError``, as JAX's ``Optimizer.minimize`` does.
+
+    Best-loss tracking is :func:`run_adabelief`'s, and nothing is read
+    back to the host inside the loop.
+
+    Returns:
+        (best_free, final_free, loss_history[n_iter], stopped_at,
+        snapshots, snapshot_iterations): ``stopped_at`` an int;
+        ``snapshots`` the free tree with a leading slot axis and
+        ``snapshot_iterations`` an int array, or both None without
+        snapshots.
+    """
+    if checkpoint_path is not None and (stop_at_loss_increase
+                                        or n_param_snapshots):
+        raise ValueError(
+            "checkpoint_path cannot be combined with "
+            "stop_at_loss_increase / return_param_history (the "
+            "extended optimizer path has no checkpointing)")
     n_iter = int(n_iter)
     theta, spec = flatten(free0)
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
     history = torch.empty(n_iter, device=theta.device)
+    n_snap = min(int(n_param_snapshots), n_iter)
+    every = max(1, n_iter // max(int(n_param_snapshots), 1))
+    ring = theta.new_zeros(n_snap, theta.numel())
+    ring_it = np.zeros(n_snap, dtype=np.int32)
+    prev_loss = torch.full((), float("inf"), device=theta.device)
+    stopped = torch.zeros((), dtype=torch.bool, device=theta.device)
+    stopped_at = torch.full((), n_iter, dtype=torch.int64,
+                            device=theta.device)
 
     def steps(carry, iterations):
+        nonlocal prev_loss, stopped, stopped_at
         theta, mu, nu, best, best_loss = carry
         for it in iterations:
-            x = theta.requires_grad_(True)
-            value = loss_fn(unflatten(x, spec))
-            grad, = torch.autograd.grad(value, x)
-            theta = theta.detach()
-            value = value.detach()
+            theta, value, grad, best, best_loss = _evaluate(
+                loss_fn, spec, theta, best, best_loss)
             history[it] = value
-            improved = value < best_loss
-            best_loss = torch.where(improved, value, best_loss)
-            best = torch.where(improved, theta, best)
-            theta, mu, nu = _adabelief_update(
+            new = _adabelief_update(
                 theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
                 schedule_learning_rate)
+            if stop_at_loss_increase:
+                if it >= min_iterations:
+                    rose = value > prev_loss
+                    stopped_at = torch.where(
+                        rose & ~stopped, torch.full_like(stopped_at, it),
+                        stopped_at)
+                    stopped = stopped | rose
+                prev_loss = value
+                new = tuple(torch.where(stopped, old, upd)
+                            for old, upd in zip((theta, mu, nu), new))
+            theta, mu, nu = new
+            if n_snap and it % every == 0:
+                slot = min(it // every, n_snap - 1)
+                ring[slot] = theta
+                ring_it[slot] = it
         return theta, mu, nu, best, best_loss
 
     theta, _, _, best, _ = run_segments(
         steps, _adabelief_carry(theta), history, n_iter, checkpoint_path,
         checkpoint_every, inputs_digest, checkpoint_share)
+    snapshots = snapshot_iterations = None
+    if n_snap:
+        snapshots = _free_from(ring, spec, free0, batched=True)
+        snapshot_iterations = ring_it
     return (_free_from(best, spec, free0), _free_from(theta, spec, free0),
-            history.cpu().numpy())
+            history.cpu().numpy(), int(stopped_at), snapshots,
+            snapshot_iterations)
 
 
 def run_lbfgsb(loss_fn, free0, lower, upper, n_iter):
@@ -713,54 +804,90 @@ def run_segments(steps, carry, history, n_iter, checkpoint_path,
     return carry
 
 
-def _free_from(vec, spec, free0):
-    # top-level keys with no free leaves (kwargs_sersic) are kept as {}
-    out = unflatten(vec.detach().clone(), spec)
+def _free_from(vec, spec, free0, batched=False):
+    # top-level keys with no free leaves (kwargs_sersic) are kept as {};
+    # ``batched``: ``vec`` holds one flat tree a row (the snapshot ring)
+    out = (unflatten_batched if batched else unflatten)(
+        vec.detach().clone(), spec)
     for k, v in free0.items():
         if isinstance(v, dict) and k not in out:
             out[k] = {}
     return out
 
 
-class Optimizer:
-    """A Loss, a Params and a method ('adabelief' or 'l-bfgs-b').
+LBFGS_METHODS = ("l-bfgs-b", "lbfgsb", "l-bfgs")
+N_PARAM_SNAPSHOTS = 64
 
-    ``minimize`` runs the fit from the Params' best values and stores the
-    best free tree back into it; ``loss_history`` holds the n_iter losses.
+
+class Optimizer:
+    """A Loss, a Params and a method: 'adabelief', or L-BFGS under any of
+    the names :data:`LBFGS_METHODS`.
+
+    ``minimize`` runs the fit from the Params' best values (or their start
+    with ``restart_from_init``) and stores the best free tree back into
+    it; ``loss_history`` holds the n_iter losses.
     """
 
     def __init__(self, loss, parameters, method="adabelief"):
-        if method not in ("adabelief", "l-bfgs-b"):
+        if method != "adabelief" and method not in LBFGS_METHODS:
             raise ValueError(f"unknown method {method!r}")
         self.loss = loss
         self.parameters = parameters
         self.method = method
         self.loss_history = None
 
-    def minimize(self, max_iterations, init_learning_rate=1e-3,
-                 schedule_learning_rate=True, checkpoint_path=None,
-                 checkpoint_every=500, checkpoint_inputs_digest=None,
+    def minimize(self, maxiter=None, max_iterations=None,
+                 min_iterations=None, init_learning_rate=1e-3,
+                 schedule_learning_rate=True, restart_from_init=False,
+                 stop_at_loss_increase=False, progress_bar=False,
+                 return_param_history=False, checkpoint_path=None,
+                 checkpoint_every=500, checkpoint_inputs_digest=None, *,
                  checkpoint_share=None):
-        """Returns (best_kwargs, logL, {"loss_history": ...}, runtime_s).
+        """Returns (best_kwargs, logL, extra, runtime_s), in the JAX
+        package's call form.
 
-        ``checkpoint_path``, ``checkpoint_every``,
-        ``checkpoint_inputs_digest`` and ``checkpoint_share`` run
-        AdaBelief through
-        :func:`run_adabelief_checkpointed`; L-BFGS ignores them, as in
-        the JAX package.
+        ``max_iterations`` (else ``maxiter``) is the budget. AdaBelief
+        runs :func:`run_adabelief_extended` with ``checkpoint_path``,
+        ``checkpoint_every``, ``checkpoint_inputs_digest`` and
+        ``checkpoint_share`` (which L-BFGS ignores, as in JAX), and with
+        ``stop_at_loss_increase``, ``min_iterations`` and
+        ``return_param_history`` (``N_PARAM_SNAPSHOTS`` snapshots) as its
+        optional steps; with either option ``extra`` holds
+        ``stopped_at``, and with ``return_param_history`` also
+        ``param_history`` (the free tree of numpy arrays with a leading
+        snapshot axis) and ``param_history_iterations``. The options
+        raise ``ValueError`` with L-BFGS or with a checkpoint.
+        ``progress_bar`` is accepted and unused.
         """
+        del progress_bar
         t0 = time.time()
         p = self.parameters
-        free0 = p.best_fit_values(as_kwargs=False)
-        n_iter = int(max_iterations)
+        free0 = p.free0 if restart_from_init \
+            else p.best_fit_values(as_kwargs=False)
+        n_iter = int(max_iterations if max_iterations is not None
+                     else maxiter)
+        extended = bool(stop_at_loss_increase) or bool(return_param_history)
+        if self.method != "adabelief" and extended:
+            raise ValueError(
+                "stop_at_loss_increase / return_param_history are only "
+                "implemented for method='adabelief'")
+        extra = {}
         if self.method == "adabelief":
-            best, _, hist = run_adabelief_checkpointed(
-                self.loss.loss_fn, free0, p.lower, p.upper, n_iter,
-                checkpoint_path, init_learning_rate=init_learning_rate,
-                schedule_learning_rate=schedule_learning_rate,
-                checkpoint_every=checkpoint_every,
-                inputs_digest=checkpoint_inputs_digest,
-                checkpoint_share=checkpoint_share)
+            best, _, hist, stopped_at, snaps, snap_iters = \
+                run_adabelief_extended(
+                    self.loss.loss_fn, free0, p.lower, p.upper, n_iter,
+                    init_learning_rate, schedule_learning_rate,
+                    bool(stop_at_loss_increase), int(min_iterations or 0),
+                    N_PARAM_SNAPSHOTS if return_param_history else 0,
+                    checkpoint_path=checkpoint_path,
+                    checkpoint_every=checkpoint_every,
+                    inputs_digest=checkpoint_inputs_digest,
+                    checkpoint_share=checkpoint_share)
+            if extended:
+                extra["stopped_at"] = stopped_at
+            if return_param_history:
+                extra["param_history"] = kwargs_to_numpy(snaps)
+                extra["param_history_iterations"] = snap_iters
         else:
             best, _, hist = run_lbfgsb(self.loss.loss_fn, free0, p.lower,
                                        p.upper, n_iter)
@@ -769,7 +896,7 @@ class Optimizer:
         logL = float(np.nanmin(hist)) \
             if hist.size and np.isfinite(hist).any() else float("nan")
         return (p.best_fit_values(as_kwargs=True), logL,
-                {"loss_history": hist}, time.time() - t0)
+                {"loss_history": hist, **extra}, time.time() - t0)
 
 
 def relative_loss_differential(loss_history):

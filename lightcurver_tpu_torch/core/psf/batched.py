@@ -168,8 +168,8 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
                       stamp_coordinates=None, guess_fwhm_pixels=None,
                       n_iter_analytic=100, n_iter_adabelief=3000,
                       field_distortion=False, regularization_strength=1.0,
-                      adabelief_lr=5e-4, *, mesh="auto", device="cuda",
-                      irfft_backend="fft", dft_pad=None, fetch="numpy"):
+                      adabelief_lr=5e-4, seed=0, mesh="auto", fetch="numpy",
+                      dft_pad=None, *, device="cuda", irfft_backend="fft"):
     """Fit the narrow PSFs of many frames at once.
 
     Args:
@@ -182,6 +182,8 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
             finite guard of images and noise.
         stamp_coordinates: (F, N, 2) rescaled star positions (distortion).
         guess_fwhm_pixels: (F,) per-frame seeing guess (NaN: 3 px).
+        seed: accepted and unused, as in JAX: the grid's noise weights
+            are in closed form and draw nothing.
         device: torch device of the fit ("cuda" unless the caller asks
             for the CPU; there is no fallback).
         irfft_backend, dft_pad: the render, as for

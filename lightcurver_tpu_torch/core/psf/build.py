@@ -268,8 +268,8 @@ def build_psf(image, noisemap, subsampling_factor, n_iter_analytic=100,
               n_iter_adabelief=3000, masks=None,
               guess_method_star_position="center", guess_fwhm_pixels=None,
               field_distortion=False, stamp_coordinates=None,
-              regularization_strength=1.0, adabelief_lr=5e-4, *,
-              device="cuda", irfft_backend="fft", dft_pad=None):
+              regularization_strength=1.0, adabelief_lr=5e-4, dft_pad=None,
+              *, device="cuda", irfft_backend="fft"):
     """Fit a narrow PSF on a stack of star stamps.
 
     Args:

@@ -99,7 +99,7 @@ def warp_psf(psf, dil_x, dil_y, shear):
     return _bilinear(psf, src_y, src_x) / det  # Jacobian: preserve flux
 
 
-def apply_distortion(narrow_psf, kwargs_distortion, star_xy_coordinates,
+def apply_distortion(narrow_psf, kwargs_distortion, star_xy_coordinates, *,
                      device="cuda"):
     """The spatially-varying narrow PSF at field position(s).
 

@@ -1,12 +1,12 @@
 """Mesh-based sky background estimation: a copy of
-``lightcurver_tpu/processes/background_estimation.py``, on its numpy path.
+``lightcurver_tpu/processes/background_estimation.py``.
 
 The image is divided into boxes; each box gets a sigma-clipped mode-like
 estimate (2.5 median - 1.5 mean, SExtractor's formula); the box grid is
 median filtered 3 x 3, and the full-resolution background is a bilinear
-interpolation of the grid. The JAX package runs the box statistics in
-host C++ when it can build it, and this numpy loop otherwise; its tests
-hold the two to 1e-5.
+interpolation of the grid. The box statistics run in the host C++ of
+``native/`` when it loads, else in the numpy loop of :func:`_mesh_stats`;
+the tests hold the two to 1e-5.
 """
 
 import numpy as np
@@ -64,6 +64,28 @@ def _mesh_stats(image, box_size, mask=None):
     ny, nx = image.shape
     gy = max(ny // box_size, 1)
     gx = max(nx // box_size, 1)
+    # the C++ mesh estimator when it loads (the same box edges, clipping
+    # and mode formula; an empty box is NaN in both)
+    from ..native import background_mesh
+
+    native = background_mesh(
+        image, gy, gx,
+        mask=None if mask is None else np.asarray(mask, dtype=np.uint8))
+    if native is not None:
+        back, rms = native
+    else:
+        back, rms = _mesh_stats_numpy(image, gy, gx, mask)
+    # fill empty (fully masked) boxes with the global median
+    bad = ~np.isfinite(back)
+    if bad.any():
+        back[bad] = np.nanmedian(back)
+        rms[bad] = np.nanmedian(rms)
+    return back, rms
+
+
+def _mesh_stats_numpy(image, gy, gx, mask=None):
+    """The box statistics in numpy: the C++ estimator's twin and oracle."""
+    ny, nx = image.shape
     back = np.empty((gy, gx))
     rms = np.empty((gy, gx))
     for iy in range(gy):
@@ -76,11 +98,6 @@ def _mesh_stats(image, box_size, mask=None):
             if mask is not None:
                 box = box[~mask[y0:y1, x0:x1]]
             back[iy, ix], rms[iy, ix] = _sigma_clip_box(np.ravel(box))
-    # fill empty (fully masked) boxes with the global median
-    bad = ~np.isfinite(back)
-    if bad.any():
-        back[bad] = np.nanmedian(back)
-        rms[bad] = np.nanmedian(rms)
     return back, rms
 
 

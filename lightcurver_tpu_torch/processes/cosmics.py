@@ -1,12 +1,12 @@
 """Cosmic-ray detection by Laplacian signal-to-noise (the L.A.Cosmic
-family): a copy of ``lightcurver_tpu/processes/cosmics.py``, on its numpy
-path.
+family): a copy of ``lightcurver_tpu/processes/cosmics.py``.
 
 van Dokkum (2001)'s method: cosmics are found by the significance of the
 sub-pixel-scale Laplacian against the noise, with a fine-structure
-contrast test that protects sharp PSF cores. The JAX package runs a host
-C++ twin of ``detect_cosmics_numpy`` when it can build it; its tests hold
-the two to the bit.
+contrast test that protects sharp PSF cores. :func:`detect_cosmics` runs
+the host C++ twin of ``native/`` when it loads, else
+:func:`detect_cosmics_numpy`, the fallback and the tests' oracle: the two
+agree to the bit.
 """
 
 import numpy as np
@@ -29,8 +29,15 @@ def _supersampled_laplacian(image):
 
 def detect_cosmics(data, invar=None, sigclip=4.5, sigfrac=0.3, objlim=5.0,
                    niter=2, **_ignored):
-    """Mask cosmic rays: :func:`detect_cosmics_numpy`, under the name the
-    stamp extraction calls."""
+    """Mask cosmic rays: the C++ kernel of ``native/`` when it loads, else
+    :func:`detect_cosmics_numpy` (the same arguments and returns)."""
+    from .. import native
+
+    result = native.detect_cosmics(data, invar=invar, sigclip=sigclip,
+                                   sigfrac=sigfrac, objlim=objlim,
+                                   niter=niter)
+    if result is not None:
+        return result
     return detect_cosmics_numpy(data, invar=invar, sigclip=sigclip,
                                 sigfrac=sigfrac, objlim=objlim,
                                 niter=niter)

@@ -301,8 +301,8 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         kwargs_fixed_2["kwargs_analytic"]["c_y"] = t(initial_c_y)
 
     W = t(noise_weights) if noise_weights is not None else propagate_noise(
-        model, noise_t, num_samples=NOISE_SAMPLES, seed=NOISE_SEED,
-        irfft_backend=irfft_backend, group=group)
+        model, noise_t, None, num_samples=NOISE_SAMPLES, seed=NOISE_SEED,
+        irfft_backend=irfft_backend, group=group)[0]
 
     def run_stage2():
         return run_fit(
@@ -335,8 +335,9 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         kwargs_final = linear_flux_solve(kwargs_final, data_t, var_t, model)
         fluxes = kwargs_final["kwargs_analytic"]["a"].reshape(
             n_epochs, n_sources) * scale
-        errors = get_flux_uncertainties(kwargs_final, noise_t, model) \
-            .reshape(n_epochs, n_sources) * scale
+        errors = get_flux_uncertainties(
+            kwargs_final, None, None, None, noise_t, model).reshape(
+                n_epochs, n_sources) * np.float32(scale)
         residuals = data_t - model.model(kwargs_final)
         chi2 = torch.nansum(residuals**2 / noise_t**2, dim=(1, 2)) \
             / model.image_size**2
@@ -344,7 +345,7 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
                         "roi_deconv_all_iters")
     return {
         "fluxes": fluxes.cpu().numpy(),
-        "flux_errors": errors.cpu().numpy(),
+        "flux_errors": errors,
         "reduced_chi2": chi2.cpu().numpy(),
         "residuals": (residuals * scale).cpu().numpy(),
         "kwargs": kwargs_to_numpy(kwargs_final),

@@ -3,11 +3,11 @@
 
 x/y centroids, flux, second-moment semi-axes a/b, the elongation filter,
 the FWHM estimate 2 sqrt(ln2 (a^2 + b^2)), ellipticity, brightest first.
-``_segment`` and ``_moments`` need numpy and scipy only; the tables are
+``extract_stars`` runs the host C++ extractor of ``native/`` when it
+loads, else ``_segment`` and ``_moments``, which need numpy and scipy
+only; the tests hold the two to the same catalogue. The tables are
 pandas DataFrames, persisted as CSV, and pandas is imported by the
-functions that make or read them. The JAX package extracts in host C++
-when it can build it, and through ``_segment`` and ``_moments``
-otherwise; its tests hold the two to the same catalog.
+functions that make or read them.
 """
 
 import numpy as np
@@ -103,17 +103,25 @@ def extract_stars(image_background_subtracted, variance_map,
                   detection_threshold=3, min_area=10, debug_plot_path=None):
     """Detect point-ish sources; returns a DataFrame, brightest first.
 
-    With ``debug_plot_path`` the image is plotted there with the sources
-    circled.
+    The C++ flood-fill extractor of ``native/`` when it loads, else
+    :func:`_segment` and :func:`_moments`. With ``debug_plot_path`` the
+    image is plotted there with the sources circled.
     """
     import pandas as pd
 
+    from ..native import extract_sources
+
     image = np.asarray(image_background_subtracted, dtype=np.float32)
-    labels, seg = _segment(image, variance_map, detection_threshold,
+    columns = ["x", "y", "flux", "a", "b", "npix", "peak"]
+    rows = extract_sources(image, variance_map, detection_threshold,
                            min_area)
-    sources = pd.DataFrame(
-        _moments(image, seg, labels),
-        columns=["x", "y", "flux", "a", "b", "npix", "peak"])
+    if rows is not None:
+        sources = pd.DataFrame(rows[:, :7], columns=columns)
+    else:
+        labels, seg = _segment(image, variance_map, detection_threshold,
+                               min_area)
+        sources = pd.DataFrame(_moments(image, seg, labels),
+                               columns=columns)
     sources = postprocess_detections(sources)
 
     if debug_plot_path is not None:

@@ -13,8 +13,11 @@ table as the JAX task writes them.
 Each star's diagnostic plot goes to ``plots/star_modelling/<footprint
 hash>/<time>_joint_modelling_star_<name>.jpg``, as JAX's task writes it.
 
-Left out: the single-star ``do_one_star_forward_modelling``, which no
-task calls (ROADMAP.md queue 1 item 4).
+:func:`do_one_star_forward_modelling` is the reference's single-star
+fit (JAX's ``do_one_star_forward_modelling``), which no task calls: one
+star's epochs through ``setup_model``, ``Params``, ``Loss``,
+``propagate_noise`` and ``Optimizer``, then the GLS flux polish and the
+Fisher errors.
 A negative ``star_fit_batch_size`` raises a ``ValueError`` here (the JAX
 task fits nothing and reports success). h5py and pandas are imported by
 the functions that use them, and matplotlib by the plotting package.
@@ -25,10 +28,16 @@ from datetime import datetime
 from time import time
 
 import numpy as np
+import torch
 
-from ..core.optimize import warn_if_unconverged
-from ..core.params import kwargs_to_numpy
+from ..core.deconv.loss import Loss
+from ..core.deconv.model import setup_model
+from ..core.fisher import get_flux_uncertainties, linear_flux_solve
+from ..core.noise import propagate_noise
+from ..core.optimize import Optimizer, warn_if_unconverged
+from ..core.params import Params, kwargs_to_numpy
 from ..core.psf.distortion import apply_distortion
+from ..ops import enforce_fp32
 from ..structure.database import (execute_sqlite_query, executemany_sqlite,
                                   get_pandas, select_stars,
                                   select_stars_for_a_frame)
@@ -37,6 +46,123 @@ from ..utilities.checkpoints import run_discarding_stale_checkpoint
 from ..utilities.chi2_selector import get_chi2_bounds
 from ..utilities.footprint import get_combined_footprint_hash
 from ..utilities.image_coordinates import rescale_image_coordinates
+
+
+SINGLE_STAR_NOISE_SAMPLES = 200
+
+
+def do_one_star_forward_modelling(data, noisemap, psf, subsampling_factor,
+                                  n_iter=2000,
+                                  uniform_background_per_epoch=False,
+                                  starlet_global_background=True, *,
+                                  device="cuda", irfft_backend="fft"):
+    """Joint forward modelling of the N epochs of one star.
+
+    One point source starting at the stamp centre, free per-epoch fluxes
+    and positions, optionally a constant per epoch and a starlet-penalised
+    pixel background (weights from ``SINGLE_STAR_NOISE_SAMPLES`` noise
+    draws); ``n_iter`` AdaBelief iterations from the start, then the exact
+    GLS flux solve and the diagonal Fisher errors. ``data``, ``noisemap``
+    (N, n, n), ``psf`` (N, mp, mp). Runs on ``device`` (the card unless
+    the caller asks for "cpu"), rendering with ``irfft_backend`` ("fft" or
+    "matmul"; with the background free, "matmul" runs K2 each way per loss
+    evaluation, and the background's l1 runs K1 each way).
+
+    Returns a dict: ``scale``, ``kwargs_final``, ``fluxes``,
+    ``fluxes_uncertainties`` (data units, flat), ``chi2``,
+    ``chi2_per_frame``, ``loss_curve``, ``residuals``,
+    ``deconvolved_image`` and ``starlet_background``, as numpy.
+    """
+    enforce_fp32()
+    data = np.array(data, dtype=np.float32)
+    noisemap = np.array(noisemap, dtype=np.float32)
+    scale = float(np.nanmax(data))
+    if not np.isfinite(scale) or scale <= 0:
+        scale = 1.0
+    data /= scale
+    noisemap /= scale
+    # flux init (it expects the NaNs): the stamp sum minus the mean of the
+    # four edges' NaN-medians per pixel
+    borders = np.nanmean([
+        np.nanmedian(data[:, :1, :], axis=(1, 2)),
+        np.nanmedian(data[:, :, :1], axis=(1, 2)),
+        np.nanmedian(data[:, -1:, :], axis=(1, 2)),
+        np.nanmedian(data[:, :, -1:], axis=(1, 2)),
+    ], axis=0)
+    borders = np.nan_to_num(borders, nan=0.0)
+    a_est = np.nansum(data, axis=(1, 2)) - data[0].size * borders
+    # a NaN pixel reaching the loss would NaN every gradient: zero data,
+    # inflated noise
+    isnan = np.isnan(data) | np.isnan(noisemap)
+    data[isnan] = 0.0
+    noisemap[isnan] = 1e7
+    sigma_2 = noisemap**2
+
+    model, kwargs_init, kwargs_up, kwargs_down, _ = setup_model(
+        data, sigma_2, psf, np.array([0.0]), np.array([0.0]),
+        subsampling_factor, a_est, device=device)
+    n_epochs, m = len(data), model.m
+    # positions stay free (per-epoch miscentring is absorbed); rotation,
+    # the background grid and the pedestal are fixed unless asked for
+    kwargs_fixed = {
+        "kwargs_analytic": {
+            "alpha": kwargs_init["kwargs_analytic"]["alpha"]},
+        "kwargs_background": {
+            "h": torch.zeros(m * m, device=model.device),
+            "mean": torch.zeros(n_epochs, device=model.device)},
+        "kwargs_sersic": {},
+    }
+    if uniform_background_per_epoch:
+        del kwargs_fixed["kwargs_background"]["mean"]
+    if starlet_global_background:
+        del kwargs_fixed["kwargs_background"]["h"]
+    parameters = Params(kwargs_init, kwargs_fixed, kwargs_up, kwargs_down)
+
+    W = None
+    if starlet_global_background:
+        W = propagate_noise(
+            model, noisemap, kwargs_init, wavelet_type_list=["starlet"],
+            method="SLIT", num_samples=SINGLE_STAR_NOISE_SAMPLES, seed=1,
+            likelihood_type="chi2", upsampling_factor=subsampling_factor,
+            irfft_backend=irfft_backend)[0]
+    loss = Loss(data, model, parameters, sigma_2,
+                regularization_terms="l1_starlet",
+                regularization_strength_scales=3.0,
+                regularization_strength_hf=3.0,
+                regularization_strength_flux_uniformity=0.0, W=W,
+                irfft_backend=irfft_backend)
+    optim = Optimizer(loss, parameters, method="adabelief")
+    optim.minimize(max_iterations=n_iter, init_learning_rate=1e-3,
+                   schedule_learning_rate=True, restart_from_init=True)
+
+    # the finalize renders as the batched fit's: the pooled matmul DFT on
+    # "matmul", cuFFT otherwise
+    render = {"dft_mats": loss.consts["dft_mats"]} \
+        if loss.consts is not None else None
+    with torch.no_grad():
+        kwargs_final = linear_flux_solve(
+            parameters.best_fit_values(as_kwargs=True), loss.data,
+            loss.sigma_2, model, render)
+        residuals = loss.data - model.model(kwargs_final, None, render)
+        chi2_per_frame = torch.nansum(residuals**2 / loss.sigma_2,
+                                      dim=(1, 2)) / model.image_size**2
+        high_res, background_only = model.getDeconvolved(kwargs_final, 0)
+    flux_uncertainties = scale * get_flux_uncertainties(
+        kwargs=kwargs_final, kwargs_up=kwargs_up, kwargs_down=kwargs_down,
+        data=data, noisemap=noisemap, model=model)
+    chi2_per_frame = chi2_per_frame.cpu().numpy()
+    return {
+        "scale": scale,
+        "kwargs_final": kwargs_to_numpy(kwargs_final),
+        "fluxes": scale * kwargs_final["kwargs_analytic"]["a"].cpu().numpy(),
+        "fluxes_uncertainties": flux_uncertainties,
+        "chi2": float(np.nanmean(chi2_per_frame)),
+        "chi2_per_frame": chi2_per_frame,
+        "loss_curve": optim.loss_history,
+        "residuals": scale * residuals.cpu().numpy(),
+        "deconvolved_image": scale * high_res.cpu().numpy(),
+        "starlet_background": scale * background_only.cpu().numpy(),
+    }
 
 
 def _derived_psf_ref(frame_id, user_config, combined_footprint_hash,

@@ -92,14 +92,17 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module", autouse=True)
 def _jax_on_numpy_twins():
-    """JAX's background, extraction and cosmics on their numpy twins: its
-    C++ library off, and its load cache reset for this module only."""
+    """Both packages' background, extraction and cosmics on their numpy
+    twins: the C++ libraries off, and both load caches reset for this
+    module only."""
     import lightcurver_tpu.native as nat
+    import lightcurver_tpu_torch.native as port_nat
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("LIGHTCURVER_DISABLE_NATIVE", "1")
-        mp.setattr(nat, "_lib", None)
-        mp.setattr(nat, "_tried", False)
+        for module in (nat, port_nat):
+            mp.setattr(module, "_lib", None)
+            mp.setattr(module, "_tried", False)
         yield
 
 
