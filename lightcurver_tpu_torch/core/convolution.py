@@ -140,7 +140,10 @@ def hermitian_irfft2(total_hat, L):
     on the CPU the result moves by rounding only, and the gradient not at
     all (the C2R adjoint is Hermitian in those columns).
     """
-    edges = [0, total_hat.shape[-1] - 1] if L % 2 == 0 else [0]
+    # columns 0 and (even L) Lh - 1 as a strided view: an index list would
+    # be copied from the host at every call, which a CUDA graph cannot hold
+    last = total_hat.shape[-1] - 1
+    edges = slice(0, None, last) if L % 2 == 0 else slice(0, 1)
     cols = total_hat[..., edges]
     mirror = torch.conj(torch.roll(torch.flip(cols, dims=[-2]), 1, dims=-2))
     total_hat = total_hat.clone()

@@ -95,7 +95,8 @@ def _noise_draws(n_stars, n_pix, seed):
     seeded CPU generator (a star's draws do not depend on the rank that
     fits it)."""
     gen = torch.Generator().manual_seed(int(seed))
-    return torch.randn((n_stars, NOISE_SAMPLES, n_pix, n_pix), generator=gen)
+    return torch.randn((n_stars, NOISE_SAMPLES, n_pix, n_pix), generator=gen,
+                       dtype=torch.float32)
 
 
 def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
@@ -127,7 +128,7 @@ def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
                         dft_mats=mats)
 
     def zeros(*shape):
-        return torch.zeros(*shape, device=device)
+        return torch.zeros(*shape, dtype=torch.float32, device=device)
 
     free = {"kwargs_analytic": {"a": a0, "c_x": zeros(n_stars, 1),
                                 "c_y": zeros(n_stars, 1),
@@ -147,6 +148,7 @@ def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
             for key, leaf in leaves.items():
                 v = positions if key in ("c_x", "c_y", "dx", "dy") else value
                 out[group][key] = torch.full(leaf.shape[1:], v,
+                                             dtype=leaf.dtype,
                                              device=device)
         return out
 
@@ -162,13 +164,14 @@ def _prepare_stars(data, noisemap, psf, s, uniform_background_per_epoch,
         "finalize": {"dft_mats": mats} if mats is not None else None,
         # a fixed zero background renders as a zero: its chain is skipped
         "fixed_h_render": None if starlet_global_background
-        else torch.zeros((), device=device),
+        else torch.zeros((), dtype=torch.float32, device=device),
     }
     if starlet_global_background:
         if noise_weights is None and group is not None \
                 and dist.get_rank(group) != 0:
             noise_weights = torch.empty(
-                (n_stars, n_starlet_scales(m) + 1, m, m), device=device)
+                (n_stars, n_starlet_scales(m) + 1, m, m), dtype=torch.float32,
+                device=device)
             dist.broadcast(noise_weights, group=group, group_src=0)
         elif noise_weights is None:
             # statistics over the real epochs only
@@ -413,7 +416,7 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
         if checkpoint_path is not None:
             share = CheckpointShare(mesh)
     draws = None if noise_weights is not None or per_star is None \
-        else torch.as_tensor(per_star)
+        else torch.as_tensor(per_star, dtype=torch.float32)
     weights = per_star if noise_weights is not None else None
 
     n_local = data.shape[0]

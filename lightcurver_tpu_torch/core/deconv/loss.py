@@ -148,7 +148,7 @@ class Loss:
         self.lambda_pts = float(regularization_strength_pts_source)
         self.lambda_flux_uni = float(regularization_strength_flux_uniformity)
         self.epoch_w = t(epoch_weights) if epoch_weights is not None \
-            else torch.ones(model.n_epochs, device=device)
+            else torch.ones(model.n_epochs, dtype=torch.float32, device=device)
         if (epochs is None) != (group is None):
             raise ValueError("Loss: an epoch range and a process group go "
                              "together (each rank sums its own epochs)")
@@ -166,7 +166,7 @@ class Loss:
         # the terms other than the chi2, counted once: on rank 0
         self.first = group is None or dist.get_rank(group) == 0
         self.W = t(W) if W is not None else torch.ones(
-            self.n_scales + 1, m, m, device=device)
+            self.n_scales + 1, m, m, dtype=torch.float32, device=device)
         self.priors = [(name, t(mean), t(sigma)) for name, mean, sigma
                        in (prior.prior_analytic if prior else [])]
 
@@ -176,7 +176,7 @@ class Loss:
             with torch.no_grad():
                 px, py = model.source_positions(
                     param_class.merge(param_class.free0))
-                bump = torch.zeros(m, m, device=device)
+                bump = torch.zeros(m, m, dtype=torch.float32, device=device)
                 for j in range(model.n_sources):
                     g = gaussian_r_kernel(m, model.s, x0=px[0, j],
                                           y0=py[0, j], device=device)

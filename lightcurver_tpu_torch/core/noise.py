@@ -101,7 +101,8 @@ def propagate_noise(model, noisemap, kwargs, wavelet_type_list=("starlet",),
                                  upsampling_factor=s, n_scales=n_scales,
                                  irfft_backend=irfft_backend)
         else:
-            W = torch.empty((n_scales + 1, m, m), device=model.device)
+            W = torch.empty((n_scales + 1, m, m), dtype=torch.float32,
+                            device=model.device)
         dist.broadcast(W, group=group, group_src=0)
         return [W]
     noisemap = torch.as_tensor(noisemap, dtype=torch.float32,

@@ -132,7 +132,8 @@ def _adabelief_carry(theta, n_frames=None):
     shape = () if n_frames is None else (n_frames,)
     return (theta, torch.zeros_like(theta), torch.zeros_like(theta),
             theta.clone(),
-            torch.full(shape, float("inf"), device=theta.device))
+            torch.full(shape, float("inf"), dtype=theta.dtype,
+                       device=theta.device))
 
 
 def _evaluate(loss_fn, spec, theta, best, best_loss):
@@ -235,12 +236,13 @@ def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
     theta, spec = flatten(free0)
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    history = torch.empty(n_iter, device=theta.device)
+    history = torch.empty(n_iter, dtype=theta.dtype, device=theta.device)
     n_snap = min(int(n_param_snapshots), n_iter)
     every = max(1, n_iter // max(int(n_param_snapshots), 1))
     ring = theta.new_zeros(n_snap, theta.numel())
     ring_it = np.zeros(n_snap, dtype=np.int32)
-    prev_loss = torch.full((), float("inf"), device=theta.device)
+    prev_loss = torch.full((), float("inf"), dtype=theta.dtype,
+                           device=theta.device)
     stopped = torch.zeros((), dtype=torch.bool, device=theta.device)
     stopped_at = torch.full((), n_iter, dtype=torch.int64,
                             device=theta.device)
@@ -305,8 +307,9 @@ def run_lbfgsb(loss_fn, free0, lower, upper, n_iter):
         return value
 
     best = theta.detach().clone()
-    best_loss = torch.tensor(float("inf"), device=theta.device)
-    history = torch.empty(n_iter, device=theta.device)
+    best_loss = torch.tensor(float("inf"), dtype=theta.dtype,
+                             device=theta.device)
+    history = torch.empty(n_iter, dtype=theta.dtype, device=theta.device)
     for it in range(n_iter):
         before = theta.detach().clone()
         value = opt.step(closure).detach()
@@ -379,7 +382,8 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
     value_and_grad = _value_and_grad_batched(loss_fn, spec)
-    history = torch.empty(theta.shape[0], n_iter, device=theta.device)
+    history = torch.empty(theta.shape[0], n_iter, dtype=theta.dtype,
+                          device=theta.device)
 
     def steps(carry, iterations):
         theta, mu, nu, best, best_loss = carry
@@ -576,8 +580,9 @@ def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter):
     dgrads = torch.zeros_like(dparams)
     rhos = x.new_zeros(n_frames, memory_size)
     best = x.clone()
-    best_loss = torch.full((n_frames,), float("inf"), device=x.device)
-    history = torch.empty(n_frames, n_iter, device=x.device)
+    best_loss = torch.full((n_frames,), float("inf"), dtype=x.dtype,
+                           device=x.device)
+    history = torch.empty(n_frames, n_iter, dtype=x.dtype, device=x.device)
     value, grad = value_and_grad(x)
     prev_x = prev_g = None
     for it in range(n_iter):
@@ -752,7 +757,8 @@ def _resume(path, carry, history, n_iter, inputs_digest, share):
             status = 1
         except CheckpointMismatch as e:
             status, refusal = 2, e
-    status, done = share.broadcast(torch.tensor([status, done])).tolist()
+    status, done = share.broadcast(
+        torch.tensor([status, done], dtype=torch.int64)).tolist()
     if status == 2:
         refusal = refusal or CheckpointMismatch(
             f"checkpoint {path} refused on rank 0; delete it to restart")

@@ -48,7 +48,7 @@ def _bounds(n_stars, n_pix, m, device):
     def broadcast(values):
         return {group: {key: torch.full(shapes[group][key],
                                         float(values[group][key]),
-                                        device=device)
+                                        dtype=torch.float32, device=device)
                         for key in keys}
                 for group, keys in shapes.items()}
 
@@ -86,7 +86,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
     fwhm0 = torch.clamp(fwhm0, 1.2, 0.45 * n_pix)
     a0 = torch.clamp(torch.where(masks, d, torch.zeros_like(d)).sum(
         dim=(2, 3)), min=1e-3)
-    zeros = torch.zeros(n_frames, device=device)
+    zeros = torch.zeros(n_frames, dtype=torch.float32, device=device)
     lower, upper = _bounds(n_stars, n_pix, m, device)
     distortion0 = zero_distortion_kwargs((n_frames,), device=device)
     base_consts = {"data": d, "sigma_2": sigma_2, "masks": masks,
@@ -100,7 +100,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
                                  "y0": torch.zeros_like(a0)}}
     consts1 = {**base_consts, "fixed": {
         "kwargs_background": {"background": torch.zeros(
-            n_frames, m * m, device=device)},
+            n_frames, m * m, dtype=torch.float32, device=device)},
         "kwargs_distortion": distortion0}}
     best1, _, hist1 = run_lbfgsb_batched(
         lambda free: loss_moffat(free, consts1), free1,
@@ -109,7 +109,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
     # ---- phase 2: pixel grid (+ distortion), Moffat fixed ---------------
     free2 = {"kwargs_gaussian": best1["kwargs_gaussian"],
              "kwargs_background": {"background": torch.zeros(
-                 n_frames, m * m, device=device)}}
+                 n_frames, m * m, dtype=torch.float32, device=device)}}
     fixed2 = {"kwargs_moffat": best1["kwargs_moffat"]}
     if field_distortion:
         free2["kwargs_distortion"] = distortion0
@@ -133,7 +133,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
                                        dft_mats)
     consts2 = {**base_consts, "W": W,
                "lam": torch.tensor(float(regularization_strength),
-                                   device=device),
+                                   dtype=torch.float32, device=device),
                "fixed": fixed2}
     best2, _, hist2 = run_adabelief_batched(
         lambda free: loss_pixels(free, consts2), free2,

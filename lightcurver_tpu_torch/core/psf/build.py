@@ -118,7 +118,8 @@ def _grid_noise_weights_impl(sigma, m, s, num_samples, n_scales, generator,
     sigma = torch.where(torch.isfinite(sigma), sigma,
                         torch.zeros_like(sigma))
     draws = torch.randn((int(num_samples),) + tuple(sigma.shape),
-                        generator=generator).to(sigma.device)
+                        generator=generator,
+                        dtype=torch.float32).to(sigma.device)
     fine = upsample_transpose(sigma * draws, s)
     if dft_mats is not None:
         back = dft.irfft2_crop_matmul(
@@ -139,15 +140,17 @@ def _starlet_transfer_fns(L, n_scales, device=None):
     C_j (1 - S_{2^j}) with C_j the product of the coarser smoothings.
     Returns (n_scales + 1, L, L//2+1), coarse last, all real.
     """
-    wy = 2.0 * math.pi * torch.fft.fftfreq(L, device=device)[:, None]
-    wx = 2.0 * math.pi * torch.fft.rfftfreq(L, device=device)[None, :]
+    wy = 2.0 * math.pi * torch.fft.fftfreq(L, dtype=torch.float32,
+                                           device=device)[:, None]
+    wx = 2.0 * math.pi * torch.fft.rfftfreq(L, dtype=torch.float32,
+                                            device=device)[None, :]
 
     def smooth_1d(w, d):
         return (6.0 + 8.0 * torch.cos(w * d) + 2.0 * torch.cos(2.0 * w * d)) \
             / 16.0
 
     out = []
-    c = torch.ones(L, L // 2 + 1, device=device)
+    c = torch.ones(L, L // 2 + 1, dtype=torch.float32, device=device)
     for j in range(n_scales):
         d = float(2**j)
         s_j = smooth_1d(wy, d) * smooth_1d(wx, d)
@@ -184,8 +187,10 @@ def _grid_noise_weights_closed(sigma, m, s, n_scales, dft_mats=None):
 
     # frame-invariant squared-kernel spectra (n_scales+1, L, L//2+1)
     d_hat = _starlet_transfer_fns(L, n_scales, device=device)
-    wy = 2.0 * math.pi * torch.fft.fftfreq(L, device=device)[:, None]
-    wx = 2.0 * math.pi * torch.fft.rfftfreq(L, device=device)[None, :]
+    wy = 2.0 * math.pi * torch.fft.fftfreq(L, dtype=torch.float32,
+                                           device=device)[:, None]
+    wx = 2.0 * math.pi * torch.fft.rfftfreq(L, dtype=torch.float32,
+                                            device=device)[None, :]
 
     def box_1d(w):
         re = sum(torch.cos(w * k) for k in range(s))
@@ -197,7 +202,8 @@ def _grid_noise_weights_closed(sigma, m, s, n_scales, dft_mats=None):
     b2_hat = torch.fft.rfft2(b * b)
 
     # per-frame part: conv(zero-inserted sigma^2, b_j^2)
-    sig2_up = torch.zeros(*sigma.shape[:-2], m, m, device=device)
+    sig2_up = torch.zeros(*sigma.shape[:-2], m, m, dtype=torch.float32,
+                          device=device)
     sig2_up[..., ::s, ::s] = sigma.to(torch.float32) ** 2
     if dft_mats is not None:
         sig2_hat = dft.rfft2_pad_matmul(sig2_up, dft_mats)
@@ -345,13 +351,15 @@ def build_psf(image, noisemap, subsampling_factor, n_iter_analytic=100,
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
 
-    zeros_grid = torch.zeros(m * m, device=device)
+    zeros_grid = torch.zeros(m * m, dtype=torch.float32, device=device)
     kwargs_init = {
         "kwargs_moffat": {"fwhm_x": scalar(fwhm0), "fwhm_y": scalar(fwhm0),
                           "beta": scalar(2.5)},
         "kwargs_gaussian": {"a": on(a0),
-                            "x0": torch.zeros(n_stars, device=device),
-                            "y0": torch.zeros(n_stars, device=device)},
+                            "x0": torch.zeros(n_stars, dtype=torch.float32,
+                                              device=device),
+                            "y0": torch.zeros(n_stars, dtype=torch.float32,
+                                              device=device)},
         "kwargs_background": {"background": zeros_grid},
         "kwargs_distortion": zero_distortion_kwargs(device=device),
     }

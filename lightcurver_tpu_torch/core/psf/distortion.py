@@ -26,7 +26,8 @@ DISTORTION_BASIS_SIZE = 5  # [u, v, u^2, u*v, v^2]
 
 def zero_distortion_kwargs(batch=(), device=None):
     """Zero polynomial coefficients, each of shape ``batch + (5,)``."""
-    z = torch.zeros(*batch, DISTORTION_BASIS_SIZE, device=device)
+    z = torch.zeros(*batch, DISTORTION_BASIS_SIZE, dtype=torch.float32,
+                    device=device)
     return {"dilation_x": z, "dilation_y": z.clone(), "shear": z.clone()}
 
 

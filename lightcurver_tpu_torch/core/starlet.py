@@ -30,7 +30,7 @@ def n_starlet_scales(size):
 
 
 def _mirror_index(m, offset, device):
-    i = torch.arange(m, device=device) + offset
+    i = torch.arange(m, dtype=torch.int64, device=device) + offset
     i = torch.where(i < 0, -1 - i, i)
     return torch.where(i >= m, 2 * m - 1 - i, i)
 

@@ -14,7 +14,8 @@ modes and have no counterpart.
 Kernels: K1, the starlet (``starlet_op``, ``starlet_cuda``,
 ``csrc/starlet.cu``); K2, the fused render (``fused_render``,
 ``fused_render_cuda``, ``csrc/fused_render.cu``); both built at first use
-by ``cuda_build``.
+by ``cuda_build``, and each direction one unit of its work formula in a
+cost count (``cost``).
 
 Precision policy: photometric math is float32 with TF32 off. The JAX
 package measured a 0.15 % flux systematic from a reduced-precision matmul

@@ -30,12 +30,14 @@ the conjugate of t_hat * (pc + i ps) to h_hat.
 the plain twins below; a CUDA tensor runs the hand-written kernels of
 ``csrc/fused_render.cu`` through ``ops/fused_render_cuda.py`` (which
 counts their launches), or raises. The PSF spectra, ``r_hat``, the centre
-phase and the DFT matrices are constants: they may not require grad.
+phase and the DFT matrices are constants: they may not require grad. In
+a cost count each direction is one unit of ``fused_render_cuda.work``
+(``ops/cost.py``).
 """
 
 import torch
 
-from . import fused_render_cuda
+from . import cost, fused_render_cuda
 
 # positions of the constant operands in _FusedRender.forward
 _CONSTANTS = {3: "t_re", 4: "t_im", 5: "r_hat", 6: "pc", 7: "ps",
@@ -124,21 +126,29 @@ class _FusedRender(torch.autograd.Function):
         ctx.save_for_backward(u_re, u_im, v, *consts)
         args = (u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,
                 ayp, byp, cxp, sxp, include_h)
-        if u_re.device.type == "cpu":
-            return render_plain(*args)
-        return fused_render_cuda.forward(*args)
+        render = render_plain if u_re.device.type == "cpu" \
+            else fused_render_cuda.forward
+        return cost.charged(lambda: _work(u_re, v, ayp, False, ctx),
+                            render, *args)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
-        if g.device.type == "cpu":
-            du_re, du_im, dv, dh_re, dh_im = render_backward_plain(
-                g, *ctx.saved_tensors, ctx.include_h, ctx.n_groups)
-        else:
-            du_re, du_im, dv, dh_re, dh_im = fused_render_cuda.backward(
-                g, *ctx.saved_tensors, ctx.include_h, ctx.n_groups)
+        render_backward = render_backward_plain if g.device.type == "cpu" \
+            else fused_render_cuda.backward
+        saved = ctx.saved_tensors
+        du_re, du_im, dv, dh_re, dh_im = cost.charged(
+            lambda: _work(saved[0], saved[2], saved[8], True, ctx),
+            render_backward, g, *saved, ctx.include_h, ctx.n_groups)
         return (du_re, du_im, dv, None, None, None, None, None, dh_re,
                 dh_im, None, None, None, None, None)
+
+
+def _work(u_re, v, ayp, backward, ctx):
+    """(bytes, FLOPs) of one K2 call (``fused_render_cuda.operand_work``)."""
+    n_bytes, products, rest = fused_render_cuda.operand_work(
+        u_re, v, ayp, backward, ctx.include_h, ctx.n_groups)
+    return n_bytes, products + rest
 
 
 def fused_render(u_re, u_im, v, t_re, t_im, r_hat, pc, ps, h_re, h_im,

@@ -125,6 +125,37 @@ def _shapes(N, C, L, Lh, n, n_groups=None):
             "g": (N, n, n)}
 
 
+def work(N, C, L, Lh, n, backward, include_h, n_groups=None):
+    """``(bytes, products, rest)`` of one call on N epochs (2M = C, k axis
+    L, half axis Lh, stamps n): bytes with each operand read once and
+    each result written once; FLOPs split into the products the tensor
+    cores can take (the two DFT stages) and the rest (the rank-1
+    spectrum and the elementwise terms). With ``include_h`` the
+    background is ``n_groups`` planes (one shared plane for None), read
+    by the forward and written as dh by the backward. The count of
+    ``utilities/benchmarking.compiled_cost`` and the bounds of
+    ``chip_smoke.py``."""
+    plane = L * Lh
+    G = n_groups or 1
+    consts = (3 + 2 * G * (not backward)) if include_h else 1
+    floats = (2 * N * C * L + N * C * Lh + 2 * N * plane + consts * plane
+              + 2 * n * L + 2 * Lh * n + N * n * n)
+    if backward:   # du, dv and dh out
+        floats += 2 * N * C * L + N * C * Lh + 2 * G * plane * include_h
+    products = 2 * N * (4 * n * plane + 2 * n * n * Lh)
+    rank1 = (2 if backward else 1) * 2 * N * 2 * C * plane
+    rest = rank1 + N * plane * (8 + 14 * include_h)
+    return 4 * floats, products, rest
+
+
+def operand_work(u_re, v, ayp, backward, include_h, n_groups):
+    """:func:`work` at the shapes of K2's operands u_re (N, 2M, L),
+    v (N, 2M, Lh) and ayp (n, L), with ``n_groups`` as :func:`h_groups`
+    gives it for the forward's h."""
+    return work(*u_re.shape, v.shape[-1], ayp.shape[0], backward,
+                include_h, n_groups)
+
+
 def h_groups(h_re, n_epochs):
     """G of a background plane stack: None for one (L, Lh) plane shared
     by every epoch, else the leading extent of (G, L, Lh), which must

@@ -131,6 +131,16 @@ def cluster_for(device, m, batch):
     return cluster_size(m, batch, n_sms, optin)
 
 
+def work(m, batch, n_scales):
+    """(bytes, FLOPs) of one call, forward or adjoint, on ``batch`` images
+    of side ``m``: one plane in and n_scales + 1 out (or back), each read
+    or written once; per level two 5-tap passes and a difference, 21
+    FLOPs a pixel. The count of ``utilities/benchmarking.compiled_cost``
+    and the bounds of ``chip_smoke.py``."""
+    return (4 * batch * m * m * (n_scales + 2),
+            21 * n_scales * batch * m * m)
+
+
 def _check_cuda_input(x, what):
     if x.dtype != torch.float32:
         raise TypeError(f"{what}: float32 expected, got {x.dtype}")

@@ -108,8 +108,9 @@ def do_one_star_forward_modelling(data, noisemap, psf, subsampling_factor,
         "kwargs_analytic": {
             "alpha": kwargs_init["kwargs_analytic"]["alpha"]},
         "kwargs_background": {
-            "h": torch.zeros(m * m, device=model.device),
-            "mean": torch.zeros(n_epochs, device=model.device)},
+            "h": torch.zeros(m * m, dtype=torch.float32, device=model.device),
+            "mean": torch.zeros(n_epochs, dtype=torch.float32,
+                                device=model.device)},
         "kwargs_sersic": {},
     }
     if uniform_background_per_epoch:

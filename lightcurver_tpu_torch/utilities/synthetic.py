@@ -6,13 +6,15 @@ machine without jax cannot import the original, since importing any
 ``lightcurver_tpu`` module loads the JAX core. The same seed gives the
 same scene and the same stamps as the original (the tests check this).
 
-Also the star photometry's buckets (:func:`star_photometry_scene`, the
-stamps of the JAX package's ``bench.py::run_star_photometry_bench``), the
-frames of the JAX package's PSF bench (:func:`psf_bench_frames`)
-and a point of the batched PSF fit's pixel-phase loss on them
-(:func:`psf_pixel_phase_point`), which the kernel tests, ``chip_smoke.py``
-and ``tools/torch_psf_rounding.py`` hold card against CPU and float32
-against float64.
+Also :func:`make_psf_task_workdir` (the PSF task's workdir without the
+tasks before it, as JAX's), the star photometry's buckets
+(:func:`star_photometry_scene`, the stamps of the JAX package's
+``bench.py::run_star_photometry_bench``), the frames of the JAX
+package's PSF bench (:func:`psf_bench_frames`) and a point of the
+batched PSF fit's pixel-phase loss on them (:func:`psf_pixel_phase_point`),
+which the kernel tests, ``chip_smoke.py`` and
+``tools/torch_psf_rounding.py`` hold card against CPU and float32 against
+float64.
 """
 
 import math
@@ -108,6 +110,101 @@ def make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, noise_sigma=0.3,
     }
 
 
+def make_psf_task_workdir(workdir, n_frames=64, n_stars=8, n_pix=64, s=2,
+                          seed=11, config_overrides=None):
+    """A ready-to-run workdir for the PSF-modelling pipeline task.
+
+    Writes exactly what ``processes.psf_modelling.model_all_psfs`` reads:
+    the config (the port's example config, with the workdir, the
+    ``ROI_disk`` star selection, the stamp size and s, and
+    ``config_overrides``), the frames, stars and stars_in_frames rows and
+    the regions HDF5 of per-star stamps (frame k: :func:`make_star_stamps`
+    of seed ``seed + k``), without running the tasks before it. The same
+    rows and datasets as JAX's ``make_psf_task_workdir``.
+
+    Returns the config path (set LIGHTCURVER_CONFIG to it).
+    """
+    import sqlite3
+    from pathlib import Path
+
+    import h5py
+    import yaml
+
+    from ..structure.database import initialize_database
+    from .star_naming import generate_star_names
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "frames").mkdir(exist_ok=True)
+
+    template = (Path(__file__).parent.parent / "pipeline"
+                / "example_config_file" / "config.yaml")
+    with open(template) as f:
+        config = yaml.safe_load(f)
+    config.update({
+        "workdir": str(workdir),
+        "raw_dirs": [str(workdir / "raw")],
+        "already_plate_solved": 1,
+        "star_selection_strategy": "ROI_disk",
+        "ROI_disk_radius_arcseconds": 30,
+        "stamp_size_stars": n_pix,
+        "subsampling_factor": s,
+    })
+    config["ROI"] = {"bench": {"coordinates": [42.2031, 19.22528]}}
+    config.update(config_overrides or {})
+    config_path = workdir / "config.yaml"
+    config_path.write_text(yaml.dump(config))
+
+    initialize_database(workdir / "database.sqlite3")
+
+    # ROI_disk: the footprint hash is the radius hash, frame-independent
+    fhash = hash(config["ROI_disk_radius_arcseconds"])
+    names = generate_star_names(n_stars)
+    conn = sqlite3.connect(workdir / "database.sqlite3")
+    try:
+        for i, name in enumerate(names):
+            conn.execute(
+                "INSERT INTO stars (gaia_id, name, ra, dec, gmag, "
+                "combined_footprint_hash, distance_to_roi_arcsec) "
+                "VALUES (?,?,?,?,?,?,?)",
+                (1000 + i, name, 42.2031 + 1e-3 * i, 19.22528, 17.5,
+                 fhash, 5.0 * (i + 1)))
+        with h5py.File(workdir / "regions.h5", "w") as f:
+            for k in range(n_frames):
+                rel = f"frames/frame_{k:04d}.fits"
+                seeing = 2.4 + 0.01 * (k % 40)
+                conn.execute(
+                    "INSERT INTO frames (id, mjd, exptime, gain, "
+                    "image_relpath, plate_solved, eliminated, "
+                    "roi_in_footprint, seeing_pixels, pixel_scale) "
+                    "VALUES (?,?,?,?,?,1,0,1,?,?)",
+                    (k + 1, 60000.0 + k, 30.0, 1.2, rel, seeing, 0.2))
+                for gid in range(1000, 1000 + n_stars):
+                    conn.execute(
+                        "INSERT INTO stars_in_frames (frame_id, "
+                        "star_gaia_id, combined_footprint_hash) "
+                        "VALUES (?,?,?)", (k + 1, gid, fhash))
+                st = make_star_stamps(n_stars=n_stars, n_pix=n_pix, s=s,
+                                      seed=seed + k, fwhm_x=seeing,
+                                      fwhm_y=seeing)
+                grp = f.create_group(rel)
+                grp["frame_shape"] = np.array([2048, 2048])
+                for sub in ("data", "noisemap", "cosmicsmask",
+                            "image_pixel_coordinates"):
+                    grp.create_group(sub)
+                for j, gid in enumerate(range(1000, 1000 + n_stars)):
+                    grp["data"][str(gid)] = st["data"][j]
+                    grp["noisemap"][str(gid)] = st["sigma"][j]
+                    grp["cosmicsmask"][str(gid)] = np.zeros(
+                        (n_pix, n_pix), dtype=bool)
+                    grp["image_pixel_coordinates"][str(gid)] = np.array(
+                        [300.0 + 100.0 * j, 400.0 + 80.0 * j])
+        conn.commit()
+    finally:
+        conn.close()
+    return config_path
+
+
 def make_star_stamps(n_stars=8, n_pix=64, s=2, seed=3, fwhm_x=3.0,
                      fwhm_y=2.6, beta=2.6, flux_range=(200.0, 800.0)):
     """Synthetic single-frame star stamps sharing one PSF (for build_psf)."""
@@ -182,12 +279,13 @@ def star_k2_operands(n_stars, n_epochs, n_pix, device, seed):
         dft_mats=dft.make_dft_mats(2 * m, m, pool=2, device=device))
     gen = torch.Generator().manual_seed(seed)
     a = torch.as_tensor(sc["a_true"].reshape(-1, 1), device=device)
-    px, py = (0.3 * torch.randn(2, n_stars * n_epochs, 1,
-                                generator=gen)).to(device)
-    h = (0.01 * torch.randn(n_stars, m * m, generator=gen)).to(device)
+    px, py = (0.3 * torch.randn(2, n_stars * n_epochs, 1, generator=gen,
+                                dtype=torch.float32)).to(device)
+    h = (0.01 * torch.randn(n_stars, m * m, generator=gen,
+                            dtype=torch.float32)).to(device)
     ops = model.fused_render_operands(a, px, py, h, model.matmul_consts())
-    g = torch.randn(n_stars * n_epochs, n_pix, n_pix,
-                    generator=gen).to(device)
+    g = torch.randn(n_stars * n_epochs, n_pix, n_pix, generator=gen,
+                    dtype=torch.float32).to(device)
     return ops, g
 
 
