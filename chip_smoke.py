@@ -228,6 +228,26 @@ prints no result:
    the same bytes and FLOPs (autograd runs the card's backward on its
    own thread). ``make_psf_task_workdir`` needs h5py, which the card's
    machine lacks: one line says so.
+17. every unsharded fit's optimizer loops as CUDA graphs against the same
+   steps called eagerly (``recorded_loops`` records each
+   ``core.optimize.StepLoop`` and can force its ``eager``): ROI-100 on
+   each render at 30 + 300 iterations (``CAPTURED_ROI_BUDGET``), PSF-16
+   on each (matmul at ``dft_pad`` 16) at 20 + 300, the first PSF frame
+   through ``build_psf``, STAR-32 at the shipped flags on cuFFT and with
+   the starlet background on matmul at 300, and its first star through
+   the single-star fit (starlet, matmul); each cell four times in turns
+   (graph, eager, eager, graph). Gates: every run's result and every
+   loop's final state the first run's bits, the same K1 and K2 launches
+   (so the replays are counted exactly), every loop of a captured run
+   replayed. Printed: each loop's steps, replays, the launches its
+   capture recorded and its per-iteration time captured and eager (after
+   the warm-up and the capture; the better of two runs), the walls, and
+   the script's elapsed time.
+
+Every unsharded fit replays its optimizer step as a CUDA graph
+(``core/optimize.py``), so phases 4 to 11, 13 and 15 run captured; the
+sharded fits of phase 14 call their steps eagerly. The wrappers' launch
+counts include the replays (the driver adds what each capture recorded).
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
@@ -235,10 +255,9 @@ rate of the units that can run them, from the shapes of this run and the
 port's work formulas, ``starlet_cuda.work`` and
 ``fused_render_cuda.work``) and its launches over every run of the main
 path (phases 5, 5b, 7, 7b, 9 to 9d, 10, 10b, 11's pipelined runs, 13's
-pipeline run, 14a, both ranks of 14b, 15a and 16, whose graph replays
-are counted from the launches each capture recorded), and, last, the
-device line. There is no CPU path:
-without a card the script fails.
+pipeline run, 14a, both ranks of 14b, 15a, 16, whose graph replays
+are counted from the launches each capture recorded, and 17), and, last,
+the device line. There is no CPU path: without a card the script fails.
 """
 
 import json
@@ -2569,6 +2588,220 @@ def phase_helpers(torch, card, k1_graph_ms):
                                              replayed))
 
 
+# phase 17: the fits' budgets, cut so that the four runs of each cell (two
+# captured, two eager) take about a minute together on every cell
+CAPTURED_ROI_BUDGET = dict(roi_deconv_translations_iters=30,
+                           roi_deconv_all_iters=300)
+CAPTURED_PSF_BUDGET = dict(n_iter_analytic=20, n_iter_adabelief=300)
+CAPTURED_STAR_ITERS = 300
+
+
+@contextmanager
+def recorded_loops(torch, optimize, force_eager):
+    """Within it every optimizer loop of the port (``core.optimize``'s
+    ``StepLoop``) is recorded: its steps, its graph's replays, the
+    launches its capture recorded, whether it ran a graph, the seconds of
+    its steps after the first ``N_WARMUP + 1`` (the warm-up and the
+    capture; CUDA-synchronised on the host clock) and its state at the
+    end. ``force_eager`` calls every step without a graph, as a fit under
+    a mesh does. Yields the list of the loops' records, in call order."""
+    base = optimize.StepLoop
+    log = []
+
+    class Recorded(base):
+        def __init__(self, step, state, *, eager=False):
+            super().__init__(step, state, eager=eager or force_eager)
+            self.entry = dict(steps=0, timed=0, seconds=0.0)
+            log.append(self.entry)
+
+        def run(self, n):
+            n = int(n)
+            head = max(0, min(n, optimize.N_WARMUP + 1 - self.entry["steps"]))
+            super().run(head)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().run(n - head)
+            torch.cuda.synchronize()
+            self.entry["seconds"] += time.perf_counter() - t0
+            self.entry["timed"] += n - head
+            self.entry["steps"] += n
+            self.entry.update(
+                graphed=self.graphed, replays=self.replays,
+                recorded=self.recorded,
+                state=[x.detach().cpu().numpy() for x in self.state])
+            return self.state
+
+    optimize.StepLoop = Recorded
+    try:
+        yield log
+    finally:
+        optimize.StepLoop = base
+
+
+def same_tree(np, a, b):
+    """Whether two results hold the same bits in every array and number
+    (other objects, such as a model, are skipped)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(np, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, np.generic, float, int)):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and a.tobytes() == b.tobytes()
+    return True
+
+
+def captured_cells(fits, scenes, roi_config, small=False):
+    """Phase 17's cells: ``[(name, fit)]``, ``fit()`` one call of a fit's
+    entry point on the card. Full size: ROI-100 on both renders at
+    ``CAPTURED_ROI_BUDGET``, PSF-16 on both (matmul at ``dft_pad`` 16) at
+    ``CAPTURED_PSF_BUDGET``, STAR-32 at the shipped flags on cuFFT and with
+    the starlet background on matmul, its first star alone through the
+    single-star fit (starlet, matmul) and the first PSF frame through
+    ``build_psf``, at ``CAPTURED_STAR_ITERS`` and the PSF budget. ``small``
+    cuts every shape and budget (a quick probe of the captures)."""
+    fit_roi, build_psf, build_psf_batched, fit_stars_batched, single_star \
+        = fits
+    roi, (psf_data, psf_sigma), stars = scenes
+    roi_budget, psf_budget, star_iters = (
+        (dict(roi_deconv_translations_iters=10, roi_deconv_all_iters=40),
+         dict(n_iter_analytic=10, n_iter_adabelief=40), 40) if small
+        else (CAPTURED_ROI_BUDGET, CAPTURED_PSF_BUDGET, CAPTURED_STAR_ITERS))
+    config = {**roi_config, **roi_budget}
+    data, sigma, psf, s = single_star_args(stars)
+    cells = []
+    for backend in ("fft", "matmul"):
+        cells.append((f"ROI {backend}", lambda backend=backend: fit_scene(
+            fit_roi, config, roi, "cuda", backend)))
+    for backend in ("fft", "matmul"):
+        pad = 16 if backend == "matmul" else None
+        cells.append((f"PSF {backend}", lambda backend=backend, pad=pad:
+                      build_psf_batched(psf_data, psf_sigma, 2,
+                                        irfft_backend=backend, dft_pad=pad,
+                                        **psf_budget)))
+    cells.append(("PSF single frame fft", lambda: build_psf(
+        psf_data[0], psf_sigma[0], 2, **psf_budget)))
+    for starlet, backend in ((False, "fft"), (True, "matmul")):
+        flags = "starlet" if starlet else "shipped"
+        cells.append((f"STAR {flags} {backend}",
+                      lambda starlet=starlet, backend=backend:
+                      fit_stars_batched(stars["data"], stars["sigma"],
+                                        stars["psf"], stars["s"],
+                                        n_iter=star_iters,
+                                        starlet_global_background=starlet,
+                                        irfft_backend=backend)))
+    cells.append(("single star starlet matmul", lambda: single_star(
+        data, sigma, psf, s, n_iter=star_iters, irfft_backend="matmul")))
+    return cells
+
+
+def phase_captured(np, torch, optimize, counters, card, cells):
+    """17: every unsharded fit's optimizer loops captured against the same
+    steps called eagerly. Each cell runs four times in turns (graph,
+    eager, eager, graph); each run must give the first run's bits in its
+    result and in every loop's final state (best parameters, history's
+    source, moments, counter) and the same K1 and K2 launches (so the
+    replays are counted exactly); every loop of a captured run with more
+    steps than its warm-up and capture must have replayed its graph.
+    Prints each loop's steps, replays and per-iteration time (after the
+    warm-up and the capture; the better of two runs) captured and eager.
+    Returns the K1 and K2 launches of the phase."""
+    total = (0, 0, 0, 0)
+    for name, fit in cells:
+        runs = []
+        for eager in (False, True, True, False):
+            counters(reset=True)
+            with recorded_loops(torch, optimize, eager) as log:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fit()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs.append((eager, out, log, counters(), wall))
+            total = tuple(a + b for a, b in zip(total, runs[-1][3][:4]))
+        _, ref, ref_log, ref_launches, _ = runs[0]
+        same = all(same_tree(np, out, ref) for _, out, _, _, _ in runs[1:])
+        same_states = all(
+            len(log) == len(ref_log) and all(
+                same_tree(np, a["state"], b["state"])
+                for a, b in zip(log, ref_log))
+            for _, _, log, _, _ in runs[1:])
+        same_launches = all(launches == ref_launches
+                            for _, _, _, launches, _ in runs[1:])
+        graph_logs = [log for eager, _, log, _, _ in runs if not eager]
+        replayed = all(entry["graphed"] and entry["replays"] > 0
+                       for log in graph_logs for entry in log
+                       if entry["steps"] > optimize.N_WARMUP + 1)
+        walls = ", ".join(f"{'eager' if e else 'graph'} {w:.3f} s"
+                          for e, _, _, _, w in runs)
+        say(17, f"{name}: bits captured = eager: result {same}, loop states "
+            f"{same_states}; launches equal {same_launches} "
+            f"{ref_launches[:4]}; every loop replayed {replayed}; walls "
+            f"{walls} (card {card})")
+        check(same and same_states, f"{name}: the captured fit is not the "
+              "eager fit to the bit")
+        check(same_launches, f"{name}: launches differ between the runs")
+        check(replayed, f"{name}: a loop of a captured run did not replay "
+              "its graph")
+        for i, entry in enumerate(ref_log):
+            per_it = {eager: min(log[i]["seconds"] / max(log[i]["timed"], 1)
+                                 for e, _, log, _, _ in runs if e == eager)
+                      for eager in (False, True)}
+            say(17, f"{name}: loop {i + 1}: {entry['steps']} steps, "
+                f"{entry['replays']} replays (captured launches "
+                f"{entry['recorded']}), {per_it[False] * 1e3:.4f} ms an "
+                f"iteration captured, {per_it[True] * 1e3:.4f} eager "
+                f"({1 - per_it[False] / max(per_it[True], 1e-30):.1%} "
+                "removed)")
+    return total
+
+
+def phase_captured_alone(small=True):
+    """Phase 17 alone on the card (after building both kernels): at the
+    full cells or, with ``small``, at cut shapes and budgets."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
+    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
+    from lightcurver_tpu_torch.core.psf.build import build_psf
+    from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
+                                           fused_render_cuda, starlet_cuda)
+    from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
+                                                               fit_roi)
+    from lightcurver_tpu_torch.processes.star_photometry import \
+        do_one_star_forward_modelling
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, star_photometry_scene)
+
+    enforce_fp32()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(cuda_build.build, (starlet_cuda.SOURCE,
+                                         fused_render_cuda.SOURCE)))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    scenes = ((make_roi_scene(n_epochs=16, n_pix=32, s=2, n_sources=4,
+                              seed=3),
+               psf_bench_frames(3, 4, 24), star_photometry_scene(3, 20, 16, 2))
+              if small else
+              (make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4,
+                              seed=7),
+               psf_bench_frames(16, 8, 64),
+               star_photometry_scene(32, 100, 24, 2)))
+    cells = captured_cells((fit_roi, build_psf, build_psf_batched,
+                            fit_stars_batched, do_one_star_forward_modelling),
+                           scenes, ROI_CONFIG, small)
+    return phase_captured(np, torch, optimize, launch_counters(
+        starlet_cuda, fused_render_cuda.launches), card, cells)
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -2798,15 +3031,29 @@ def main():
         f"{helper_run[2]}, backward {helper_run[3]} (graph replays "
         f"counted); chip_smoke.py so far {time.perf_counter() - started:.1f} "
         "s")
+    t0 = time.perf_counter()
+    from lightcurver_tpu_torch.core.psf.build import build_psf
+    from lightcurver_tpu_torch.processes.star_photometry import \
+        do_one_star_forward_modelling
+    captured_run = phase_captured(np, torch, optimize, counters, card,
+                                  captured_cells(
+        (fit_roi, build_psf, build_psf_batched, fit_stars_batched,
+         do_one_star_forward_modelling),
+        (scene, psf_bench_frames(16, 8, 64), stars), ROI_CONFIG))
+    say(17, f"phase 17 took {time.perf_counter() - t0:.1f} s; launches K1 "
+        f"forward {captured_run[0]}, adjoint {captured_run[1]}, K2 forward "
+        f"{captured_run[2]}, backward {captured_run[3]}; chip_smoke.py so "
+        f"far {time.perf_counter() - started:.1f} s")
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,
     # the PSF and star tasks' pipelined buckets, the pipeline run of
     # phase 13 from stamp_extraction (none where h5py is missing), the
     # sharded fits of phase 14 (both ranks of 14b), the single-star fit of
-    # phase 15a, and the helpers' loops of phase 16 with their replays
+    # phase 15a, the helpers' loops of phase 16 with their replays, and
+    # phase 17's fits, captured and eager
     main_runs = star_runs + resumed_runs + task_runs + [pipeline_run] \
-        + shard_runs + [single_run, helper_run]
+        + shard_runs + [single_run, helper_run, captured_run]
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \

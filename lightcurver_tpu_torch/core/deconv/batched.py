@@ -431,7 +431,7 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
         free0, lower, upper, int(n_iter), init_learning_rate=float(lr),
         schedule_learning_rate=True, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, inputs_digest=digest,
-        checkpoint_share=share)
+        checkpoint_share=share, eager=mesh is not None)
     with torch.no_grad():
         out = _finalize_stars(model, best, history, consts, scale)
     if mesh is not None:

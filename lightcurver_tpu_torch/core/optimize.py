@@ -1,43 +1,79 @@
-"""Fixed-iteration optimizers with box projection and best-loss tracking.
+"""Fixed-iteration optimizers with box projection and best-loss tracking,
+each iteration one step function, replayed as a CUDA graph on the card.
 
-Twin of the plain path of ``lightcurver_tpu/core/optimize.py``:
+Twin of ``lightcurver_tpu/core/optimize.py``:
 
 - AdaBelief with optax's exact semantics (b1 0.9, b2 0.999, eps 1e-16,
   eps_root 1e-16 added to the second moment every step, bias correction)
-  and optionally ``exponential_decay(lr, n_iter, 0.01)``;
-- projected L-BFGS with memory 10: ``torch.optim.LBFGS`` with a
-  strong-Wolfe line search, one iteration per step, then a projection onto
-  the box. Its path differs from optax's zoom line search; it is held to
-  the final loss.
+  and optionally ``exponential_decay(lr, n_iter, 0.01)``; the rate and the
+  bias corrections are computed as optax computes them, in float32 from
+  the integer count, on the device;
+- projected L-BFGS (JAX's ``lbfgsb_scan``): ``optax.scale_by_lbfgs`` with
+  memory 10, optax's zoom line search from a unit step (at most 6 trial
+  evaluations), then a projection onto the box. The single fit takes the
+  value and gradient again at the projected point after a step that the
+  projection clipped (JAX's ``exact_bounds=True``); the frame-batched fit
+  carries the line search's pair (``exact_bounds=False``, as JAX's
+  batched PSF caller).
 
 Both run EXACTLY n_iter iterations and return exactly n_iter history
 entries, each the loss BEFORE that iteration's update; the best parameters
 are those of the lowest recorded loss. The free tree is flattened into one
-float32 vector, so each optimizer step is a handful of kernels whatever
-the number of leaves; a Python loop takes the place of ``lax.scan``.
-AdaBelief is one loop, :func:`run_adabelief_extended` (JAX's
-``adabelief_scan_extended``); ``Optimizer.minimize``'s
-``stop_at_loss_increase`` and ``return_param_history`` switch on its two
-optional steps, which freeze the parameters and the moments once the loss
-rises after ``min_iterations``, and keep a ring of parameter snapshots.
+float32 vector (a row per problem in the batched fits), so each step is a
+handful of kernels whatever the number of leaves.
+
+How a loop runs (JAX compiles the whole ``lax.scan``): each loop is a
+step closure ``state -> state`` over a tuple of preallocated tensors, and
+the step reads no Python iteration index. The iteration is a device
+counter in the state, which the step advances; the learning rate, the
+bias corrections, the history slot (written in place), the freeze test,
+the snapshot slot and L-BFGS's first step all come from it, and L-BFGS's
+memory is rolled, oldest pair first, so its two-loop order is fixed.
+:class:`StepLoop` drives the step:
+
+- on the CPU, or with the loops' keyword ``eager=True``, by calling it
+  once an iteration;
+- on a CUDA tensor, by calling it :data:`N_WARMUP` times on a side stream
+  (iterations of the fit, not extra ones: K1 and K2 set their kernels'
+  attributes at their first launch, which a capture refuses), capturing
+  the next step into one ``torch.cuda.CUDAGraph`` and replaying it for the
+  rest of the budget. A replay does not pass the kernels' wrappers, so
+  the driver adds to their launch counts what the capture recorded, once
+  for each replay after the first. A step that cannot be captured raises;
+  nothing falls back to calling it eagerly.
+
+What breaks a capture is a host round trip inside the step's loss: a read
+back (``.item()``, ``float(t)``, ``if t:``, ``.tolist()``, ``nonzero``, a
+boolean mask index), a copy from the host (``torch.tensor`` of data, an
+index made from a Python list), or a branch on a Python number that
+changes between iterations. Fits under a mesh (``parallel/``), whose
+losses all-reduce through ``sum_over_group``, run eagerly: their callers
+pass ``eager=mesh is not None``.
+
+AdaBelief is one step for the single and the frame-batched fits:
+:func:`run_adabelief_extended` (JAX's ``adabelief_scan_extended``), whose
+``stop_at_loss_increase`` and ``n_param_snapshots`` add a freeze of the
+parameters and the moments once the loss rises after ``min_iterations``,
+and a ring of parameter snapshots; and :func:`run_adabelief_batched`.
 
 Mid-fit checkpoints (JAX's ``run_adabelief_checkpointed``): AdaBelief runs
 in segments of ``checkpoint_every`` iterations, and after each the carry
 (the flat ``theta``, ``mu``, ``nu``, ``best``, ``best_loss``), the number
-of iterations done and the history so far are written to one ``.npz``
-(leaves only, read back with ``allow_pickle=False``). A later call with
-the same path resumes after the last completed segment, from the global
-iteration index, so the learning-rate schedule spans the full run and a
-resumed fit takes the uninterrupted fit's steps. A file recorded for
-another budget, other inputs or another carry, or one that cannot be
-read, is refused with :class:`CheckpointMismatch`. The files are the
-port's own; they need not read the JAX package's. Under a mesh
-(``checkpoint_share``, ``parallel/batch.CheckpointShare``) the ranks share
-one file: global rank 0 writes the carry gathered along the batch axis,
-reads it, decides whether to resume and broadcasts its decision and its
-carry (the ranks never split, and need no shared disk), and a barrier
-before the read and after each write keeps a rank's resume or deletion
-from racing another's write.
+of iterations done and the history so far are read back between replays
+and written to one ``.npz`` (leaves only, read back with
+``allow_pickle=False``). A later call with the same path resumes after the
+last completed segment, with the counter at the global iteration index,
+so the learning-rate schedule spans the full run and a resumed fit takes
+the uninterrupted fit's steps. A file recorded for another budget, other
+inputs or another carry, or one that cannot be read, is refused with
+:class:`CheckpointMismatch`. The files are the port's own; they need not
+read the JAX package's. Under a mesh (``checkpoint_share``,
+``parallel/batch.CheckpointShare``) the ranks share one file: global rank
+0 writes the carry gathered along the batch axis, reads it, decides
+whether to resume and broadcasts its decision and its carry (the ranks
+never split, and need no shared disk), and a barrier before the read and
+after each write keeps a rank's resume or deletion from racing another's
+write.
 
 Frame-batched twins (the JAX package's ``adabelief_scan`` and
 ``lbfgsb_scan`` under ``jax.vmap``): :func:`run_adabelief_batched` and
@@ -45,9 +81,7 @@ Frame-batched twins (the JAX package's ``adabelief_scan`` and
 free tree's leaves carry a leading frame axis, the loss returns the (F,)
 vector of per-frame losses, and the gradient of its sum is the per-frame
 gradient. Every decision (best loss, line-search acceptance) is a
-per-frame mask, so a NaN in one frame changes no other frame, and no
-iteration reads a value back to the host (no ``.item()``, no branch on
-data), so a CUDA graph can later capture it.
+per-frame mask, so a NaN in one frame changes no other frame.
 """
 
 import hashlib
@@ -58,15 +92,112 @@ import numpy as np
 import torch
 
 from .params import kwargs_to_numpy
+from ..ops import fused_render_cuda, starlet_cuda
 
 UNCONVERGED_RLD_THRESHOLD = 0.02
 
 # optax.adabelief defaults, as the JAX package uses them
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-16, 1e-16
 LBFGS_MEMORY = 10
-# evaluations per L-BFGS step, line search included; torch's default for
-# max_iter=1 (5/4 of it, i.e. 1) would leave the line search none
-LBFGS_MAX_EVAL = 21
+N_WARMUP = 3    # steps called on a side stream before a capture
+N_CARRY = 5     # the checkpointed leaves: theta, mu, nu, best, best_loss
+
+# the kernels' launch counts a replay adds to
+_COUNTED = ((starlet_cuda, ("forward", "adjoint")),
+            (fused_render_cuda, ("forward", "backward", "forward_h",
+                                 "backward_h")))
+
+
+def _launch_counts():
+    return tuple(getattr(module.launches, field)
+                 for module, fields in _COUNTED for field in fields)
+
+
+def _add_launches(counts, times):
+    counts = iter(counts)
+    for module, fields in _COUNTED:
+        for field in fields:
+            setattr(module.launches, field,
+                    getattr(module.launches, field) + times * next(counts))
+
+
+def _copy_into(static, out):
+    """Copy the step's outputs into the state's tensors; an output that
+    shares storage with a state tensor (the old ``x`` kept as L-BFGS's
+    previous point) is cloned first, so no copy reads a tensor already
+    overwritten."""
+    ptrs = {s.untyped_storage().data_ptr() for s in static}
+    out = [o if o is s else (o.clone() if o.untyped_storage().data_ptr()
+                             in ptrs else o)
+           for s, o in zip(static, out)]
+    for s, o in zip(static, out):
+        if o is not s:
+            s.copy_(o)
+
+
+class StepLoop:
+    """Drives ``state = step(state)`` over a tuple of tensors (module
+    docstring): calls on the CPU or with ``eager``, else warm-up calls, one
+    capture and replays of a CUDA graph.
+
+    ``replays`` counts the graph's replays (the capture's own run
+    included) and ``recorded`` holds the K1 and K2 launches the capture
+    recorded (K1 forward, adjoint, K2 forward, backward, forward with h,
+    backward with h), None before a capture.
+    """
+
+    def __init__(self, step, state, *, eager=False):
+        self.step = step
+        self.state = tuple(state)
+        self.device = self.state[0].device
+        self.graphed = self.device.type == "cuda" and not eager
+        self.warm = 0
+        self.graph = None
+        self.recorded = None
+        self.replays = 0
+
+    def _call(self, n):
+        for _ in range(n):
+            self.state = self.step(self.state)
+
+    def run(self, n):
+        """Advance the state by ``n`` steps; returns it."""
+        n = int(n)
+        if not self.graphed:
+            self._call(n)
+            return self.state
+        if self.graph is None and n > 0 and self.warm < N_WARMUP:
+            warm = min(n, N_WARMUP - self.warm)
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._call(warm)
+            current.wait_stream(side)
+            self.warm += warm
+            n -= warm
+        if self.graph is None and n > 0:
+            self._capture()
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+        if n > 0:
+            self.replays += n
+            _add_launches(self.recorded, n)
+        return self.state
+
+    def _capture(self):
+        """Capture one step into a graph and run it once (its launches
+        were counted by the wrappers as the capture recorded them)."""
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(graph):
+            _copy_into(self.state, self.step(self.state))
+        self.recorded = tuple(b - a for a, b in zip(before,
+                                                    _launch_counts()))
+        self.graph = graph
+        graph.replay()
+        self.replays += 1
 
 
 def _leaves(tree, path=()):
@@ -110,19 +241,16 @@ def unflatten(vec, spec):
     return out
 
 
-def _adabelief_update(theta, grad, mu, nu, lo, hi, it, n_iter,
-                      init_learning_rate, schedule_learning_rate):
+def _adabelief_update(theta, grad, mu, nu, lo, hi, count, lr):
     """One projected AdaBelief step (optax's arithmetic): returns the new
-    (theta, mu, nu). Elementwise, so it serves any leading frame axis."""
+    (theta, mu, nu). ``count`` is the 1-based step and ``lr`` the rate,
+    float32 tensors. Elementwise, so it serves any leading frame axis."""
     mu = (1 - B1) * grad + B1 * mu
     pred_err = grad - mu
     nu = (1 - B2) * pred_err**2 + B2 * nu + EPS_ROOT
-    count = it + 1
-    mu_hat = mu / np.float32(1 - B1**count)
-    nu_hat = nu / np.float32(1 - B2**count)
-    lr = init_learning_rate * 0.01 ** (it / max(n_iter, 1)) \
-        if schedule_learning_rate else init_learning_rate
-    step = np.float32(-lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+    mu_hat = mu / (1 - torch.pow(B1, count))
+    nu_hat = nu / (1 - torch.pow(B2, count))
+    step = -lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
     return torch.clamp(theta + step, lo, hi), mu, nu
 
 
@@ -136,22 +264,82 @@ def _adabelief_carry(theta, n_frames=None):
                        device=theta.device))
 
 
-def _evaluate(loss_fn, spec, theta, best, best_loss):
-    """Loss and gradient at the flat ``theta``, with the best-loss
-    tracking of that (pre-update) point: ``(theta, value, grad, best,
-    best_loss)``, all detached."""
-    x = theta.requires_grad_(True)
-    value = loss_fn(unflatten(x, spec))
-    grad, = torch.autograd.grad(value, x)
-    theta, value = theta.detach(), value.detach()
-    improved = value < best_loss
-    return (theta, value, grad, torch.where(improved, theta, best),
-            torch.where(improved, value, best_loss))
+def _value_and_grad(loss_fn, spec):
+    """``(value, grad)`` of the loss at the flat ``theta``, detached."""
+    def value_and_grad(theta):
+        x = theta.detach().requires_grad_(True)
+        value = loss_fn(unflatten(x, spec))
+        grad, = torch.autograd.grad(value, x)
+        return value.detach(), grad
+    return value_and_grad
+
+
+def _adabelief_loop(value_and_grad, carry, lo, hi, history, n_iter,
+                    init_learning_rate, schedule_learning_rate, *,
+                    eager=False, stop_at_loss_increase=False,
+                    min_iterations=0, ring=None, ring_it=None, every=1):
+    """A :class:`StepLoop` of projected AdaBelief from ``carry``.
+
+    The state is the carry (theta, mu, nu, best, best_loss), the counter
+    and, with ``stop_at_loss_increase``, the previous loss, the stopped
+    flag and ``stopped_at``. Each step writes its loss to ``history[...,
+    it]`` and, with a ``ring``, the updated parameters to slot ``min(it //
+    every, slots - 1)`` when ``it % every == 0`` (their iteration to
+    ``ring_it``). The single fit's tensors have no frame axis, the batched
+    fit's one leading axis."""
+    theta = carry[0]
+    dtype, device = theta.dtype, theta.device
+    lr0 = torch.full((), float(init_learning_rate), dtype=dtype,
+                     device=device)
+    span = torch.full((), max(n_iter, 1), dtype=dtype, device=device)
+
+    def step(state):
+        theta, mu, nu, best, best_loss, it = state[:6]
+        value, grad = value_and_grad(theta)
+        history.index_copy_(-1, it.view(1), value[..., None])
+        improved = value < best_loss
+        best_loss = torch.where(improved, value, best_loss)
+        best = torch.where(improved[..., None], theta, best)
+        # optax's exponential_decay(lr, n_iter, 0.01) at the 0-based count
+        lr = lr0 * torch.pow(0.01, it.to(dtype) / span) \
+            if schedule_learning_rate else lr0
+        new = _adabelief_update(theta, grad, mu, nu, lo, hi,
+                                (it + 1).to(dtype), lr)
+        extra = ()
+        if stop_at_loss_increase:
+            prev_loss, stopped, stopped_at = state[6:]
+            rose = (value > prev_loss) & (it >= min_iterations)
+            stopped_at = torch.where(rose & ~stopped, it, stopped_at)
+            stopped = stopped | rose
+            new = tuple(torch.where(stopped[..., None], old, upd)
+                        for old, upd in zip((theta, mu, nu), new))
+            extra = (value, stopped, stopped_at)
+        theta, mu, nu = new
+        if ring is not None:
+            slot = torch.clamp(it // every, max=ring.shape[0] - 1).view(1)
+            take = it % every == 0
+            ring.index_copy_(0, slot, torch.where(
+                take, theta, ring.index_select(0, slot)[0])[None])
+            ring_it.index_copy_(0, slot, torch.where(
+                take, it, ring_it.index_select(0, slot)[0])[None])
+        return (theta, mu, nu, best, best_loss, it + 1) + extra
+
+    counter = torch.zeros((), dtype=torch.int64, device=device)
+    extra = ()
+    if stop_at_loss_increase:
+        extra = (torch.full_like(carry[4], float("inf")),
+                 torch.zeros(carry[4].shape, dtype=torch.bool,
+                             device=device),
+                 torch.full(carry[4].shape, n_iter, dtype=torch.int64,
+                            device=device))
+    return StepLoop(step, tuple(carry) + (counter,) + extra, eager=eager)
 
 
 def run_adabelief(loss_fn, free0, lower, upper, n_iter,
-                  init_learning_rate=1e-3, schedule_learning_rate=True):
-    """Projected AdaBelief.
+                  init_learning_rate=1e-3, schedule_learning_rate=True, *,
+                  eager=False):
+    """Projected AdaBelief. ``eager``: call the step on the card too,
+    without a graph (the fits under a mesh).
 
     Returns:
         (best_free, final_free, loss_history) with loss_history a numpy
@@ -160,14 +348,14 @@ def run_adabelief(loss_fn, free0, lower, upper, n_iter,
     return run_adabelief_checkpointed(
         loss_fn, free0, lower, upper, n_iter, None,
         init_learning_rate=init_learning_rate,
-        schedule_learning_rate=schedule_learning_rate)
+        schedule_learning_rate=schedule_learning_rate, eager=eager)
 
 
 def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
                                checkpoint_path, init_learning_rate=1e-3,
                                schedule_learning_rate=True,
                                checkpoint_every=500, inputs_digest=None,
-                               checkpoint_share=None):
+                               checkpoint_share=None, *, eager=False):
     """Projected AdaBelief in resumable segments with on-disk checkpoints.
 
     With ``checkpoint_path`` None it is one segment and writes nothing.
@@ -176,7 +364,7 @@ def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
     docstring); ``inputs_digest`` (:func:`arrays_digest` of the fit's
     inputs) is stored with it and must match on resume;
     ``checkpoint_share`` shares the file between the ranks of a mesh (see
-    the module docstring).
+    the module docstring); ``eager`` as :func:`run_adabelief`.
 
     Returns:
         (best_free, final_free, loss_history[n_iter]) as
@@ -186,7 +374,7 @@ def run_adabelief_checkpointed(loss_fn, free0, lower, upper, n_iter,
         loss_fn, free0, lower, upper, n_iter, init_learning_rate,
         schedule_learning_rate, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, inputs_digest=inputs_digest,
-        checkpoint_share=checkpoint_share)[:3]
+        checkpoint_share=checkpoint_share, eager=eager)[:3]
 
 
 def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
@@ -195,10 +383,11 @@ def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
                            stop_at_loss_increase=False, min_iterations=0,
                            n_param_snapshots=0, checkpoint_path=None,
                            checkpoint_every=500, inputs_digest=None,
-                           checkpoint_share=None):
+                           checkpoint_share=None, *, eager=False):
     """The one projected AdaBelief loop, with the reference's optional
-    semantics (JAX's ``adabelief_scan_extended``) as steps that run only
-    when asked for, so without them it is the plain loop.
+    semantics (JAX's ``adabelief_scan_extended``) as parts of the step
+    that are built only when asked for, so without them it is the plain
+    loop.
 
     - ``stop_at_loss_increase``: at the first iteration ``it >=
       min_iterations`` whose loss exceeds the previous iteration's, the
@@ -215,15 +404,13 @@ def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
       :func:`run_adabelief_checkpointed` says; the two options keep their
       state outside the checkpointed carry, so with a path they raise
       ``ValueError``, as JAX's ``Optimizer.minimize`` does.
-
-    Best-loss tracking is :func:`run_adabelief`'s, and nothing is read
-    back to the host inside the loop.
+    - ``eager`` as :func:`run_adabelief`.
 
     Returns:
         (best_free, final_free, loss_history[n_iter], stopped_at,
         snapshots, snapshot_iterations): ``stopped_at`` an int;
         ``snapshots`` the free tree with a leading slot axis and
-        ``snapshot_iterations`` an int array, or both None without
+        ``snapshot_iterations`` an int32 array, or both None without
         snapshots.
     """
     if checkpoint_path is not None and (stop_at_loss_increase
@@ -238,90 +425,28 @@ def run_adabelief_extended(loss_fn, free0, lower, upper, n_iter,
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
     history = torch.empty(n_iter, dtype=theta.dtype, device=theta.device)
     n_snap = min(int(n_param_snapshots), n_iter)
-    every = max(1, n_iter // max(int(n_param_snapshots), 1))
-    ring = theta.new_zeros(n_snap, theta.numel())
-    ring_it = np.zeros(n_snap, dtype=np.int32)
-    prev_loss = torch.full((), float("inf"), dtype=theta.dtype,
-                           device=theta.device)
-    stopped = torch.zeros((), dtype=torch.bool, device=theta.device)
-    stopped_at = torch.full((), n_iter, dtype=torch.int64,
-                            device=theta.device)
-
-    def steps(carry, iterations):
-        nonlocal prev_loss, stopped, stopped_at
-        theta, mu, nu, best, best_loss = carry
-        for it in iterations:
-            theta, value, grad, best, best_loss = _evaluate(
-                loss_fn, spec, theta, best, best_loss)
-            history[it] = value
-            new = _adabelief_update(
-                theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
-                schedule_learning_rate)
-            if stop_at_loss_increase:
-                if it >= min_iterations:
-                    rose = value > prev_loss
-                    stopped_at = torch.where(
-                        rose & ~stopped, torch.full_like(stopped_at, it),
-                        stopped_at)
-                    stopped = stopped | rose
-                prev_loss = value
-                new = tuple(torch.where(stopped, old, upd)
-                            for old, upd in zip((theta, mu, nu), new))
-            theta, mu, nu = new
-            if n_snap and it % every == 0:
-                slot = min(it // every, n_snap - 1)
-                ring[slot] = theta
-                ring_it[slot] = it
-        return theta, mu, nu, best, best_loss
-
+    ring = ring_it = None
+    if n_snap:
+        ring = theta.new_zeros(n_snap, theta.numel())
+        ring_it = torch.zeros(n_snap, dtype=torch.int64,
+                              device=theta.device)
+    loop = _adabelief_loop(
+        _value_and_grad(loss_fn, spec), _adabelief_carry(theta), lo, hi,
+        history, n_iter, init_learning_rate, schedule_learning_rate,
+        eager=eager, stop_at_loss_increase=bool(stop_at_loss_increase),
+        min_iterations=int(min_iterations), ring=ring, ring_it=ring_it,
+        every=max(1, n_iter // max(int(n_param_snapshots), 1)))
     theta, _, _, best, _ = run_segments(
-        steps, _adabelief_carry(theta), history, n_iter, checkpoint_path,
-        checkpoint_every, inputs_digest, checkpoint_share)
+        loop, history, n_iter, checkpoint_path, checkpoint_every,
+        inputs_digest, checkpoint_share)
+    stopped_at = int(loop.state[8]) if stop_at_loss_increase else n_iter
     snapshots = snapshot_iterations = None
     if n_snap:
         snapshots = _free_from(ring, spec, free0, batched=True)
-        snapshot_iterations = ring_it
+        snapshot_iterations = ring_it.cpu().numpy().astype(np.int32)
     return (_free_from(best, spec, free0), _free_from(theta, spec, free0),
-            history.cpu().numpy(), int(stopped_at), snapshots,
+            history.cpu().numpy(), stopped_at, snapshots,
             snapshot_iterations)
-
-
-def run_lbfgsb(loss_fn, free0, lower, upper, n_iter):
-    """Projected L-BFGS (strong-Wolfe line search), projection per step.
-
-    Returns:
-        (best_free, final_free, loss_history[n_iter]).
-    """
-    theta, spec = flatten(free0)
-    theta = theta.detach().clone().requires_grad_(True)
-    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    opt = torch.optim.LBFGS([theta], lr=1.0, max_iter=1,
-                            max_eval=LBFGS_MAX_EVAL,
-                            history_size=LBFGS_MEMORY,
-                            line_search_fn="strong_wolfe")
-
-    def closure():
-        opt.zero_grad()
-        value = loss_fn(unflatten(theta, spec))
-        value.backward()
-        return value
-
-    best = theta.detach().clone()
-    best_loss = torch.tensor(float("inf"), dtype=theta.dtype,
-                             device=theta.device)
-    history = torch.empty(n_iter, dtype=theta.dtype, device=theta.device)
-    for it in range(n_iter):
-        before = theta.detach().clone()
-        value = opt.step(closure).detach()
-        history[it] = value
-        improved = value < best_loss
-        best_loss = torch.where(improved, value, best_loss)
-        best = torch.where(improved, before, best)
-        with torch.no_grad():
-            theta.copy_(torch.clamp(theta, lo, hi))
-    return (_free_from(best, spec, free0),
-            _free_from(theta.detach(), spec, free0),
-            history.cpu().numpy())
 
 
 def flatten_batched(tree):
@@ -361,7 +486,7 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
                           init_learning_rate=1e-3,
                           schedule_learning_rate=True, checkpoint_path=None,
                           checkpoint_every=500, inputs_digest=None,
-                          checkpoint_share=None):
+                          checkpoint_share=None, *, eager=False):
     """Projected AdaBelief over F independent problems.
 
     ``free0``: tree of (F, ...) tensors; ``lower``/``upper``: trees of the
@@ -371,7 +496,8 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
     ``inputs_digest`` checkpoint the per-frame carry as
     :func:`run_adabelief_checkpointed` does (JAX's batched star fit,
     ``_fit_stars_checkpointed``); with no path nothing is written;
-    ``checkpoint_share`` shares the file between the ranks of a mesh.
+    ``checkpoint_share`` shares the file between the ranks of a mesh;
+    ``eager`` as :func:`run_adabelief`.
 
     Returns:
         (best_free, final_free, loss_history) with the history an (F,
@@ -381,26 +507,15 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
     theta, spec = flatten_batched(free0)
     theta = theta.detach().clone()
     lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    value_and_grad = _value_and_grad_batched(loss_fn, spec)
     history = torch.empty(theta.shape[0], n_iter, dtype=theta.dtype,
                           device=theta.device)
-
-    def steps(carry, iterations):
-        theta, mu, nu, best, best_loss = carry
-        for it in iterations:
-            value, grad = value_and_grad(theta)
-            history[:, it] = value
-            improved = value < best_loss
-            best_loss = torch.where(improved, value, best_loss)
-            best = torch.where(improved[:, None], theta, best)
-            theta, mu, nu = _adabelief_update(
-                theta, grad, mu, nu, lo, hi, it, n_iter, init_learning_rate,
-                schedule_learning_rate)
-        return theta, mu, nu, best, best_loss
-
+    loop = _adabelief_loop(
+        _value_and_grad_batched(loss_fn, spec),
+        _adabelief_carry(theta, theta.shape[0]), lo, hi, history, n_iter,
+        init_learning_rate, schedule_learning_rate, eager=eager)
     theta, _, _, best, _ = run_segments(
-        steps, _adabelief_carry(theta, theta.shape[0]), history, n_iter,
-        checkpoint_path, checkpoint_every, inputs_digest, checkpoint_share)
+        loop, history, n_iter, checkpoint_path, checkpoint_every,
+        inputs_digest, checkpoint_share)
     return (unflatten_batched(best, spec), unflatten_batched(theta, spec),
             history)
 
@@ -409,8 +524,6 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
 LS_SLOPE_RTOL, LS_CURV_RTOL, LS_APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
 LS_INCREASE_FACTOR, LS_INTERVAL_THRESHOLD = 2.0, 1e-5
 LBFGS_LINESEARCH_STEPS = 6
-
-
 def _decrease_error(t, value, slope, value0, slope0):
     """Sufficient decrease (Armijo) or Hager-Zhang's approximate form,
     whichever holds better; NaN counts as infinite."""
@@ -554,69 +667,133 @@ def _zoom_linesearch(value_and_grad, x, value0, grad0, d, max_steps):
             torch.where(use_safe[:, None], safe_g, grad))
 
 
-def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter):
-    """Projected L-BFGS over F independent problems, as ``lbfgsb_scan``
-    behaves under ``jax.vmap`` with ``exact_bounds=False``.
+def _lbfgs_loop(value_and_grad, x, lo, hi, history, exact_bounds, eager):
+    """A :class:`StepLoop` of projected L-BFGS over the rows of ``x`` (F,
+    P), each row its own problem: ``optax.scale_by_lbfgs`` (memory
+    :data:`LBFGS_MEMORY`, the initial inverse Hessian scaled by the last
+    pair's curvature, or by the capped inverse gradient norm at the first
+    step), optax's zoom line search from a unit step
+    (:func:`_zoom_linesearch`, :data:`LBFGS_LINESEARCH_STEPS` trials, JAX's
+    ``max_linesearch_steps``), then the projection onto the box.
 
-    Per frame: ``optax.scale_by_lbfgs`` (memory :data:`LBFGS_MEMORY`, the
-    initial inverse Hessian scaled by the last pair's curvature, or by the
-    capped inverse gradient norm at the first step), optax's zoom line
-    search from a unit step (:func:`_zoom_linesearch`, at most
-    :data:`LBFGS_LINESEARCH_STEPS` trials, JAX's ``max_linesearch_steps``),
-    then a projection onto the box. As with ``exact_bounds=False``, the value and gradient
-    carried into the next iteration are the line search's, at the
-    unprojected step. Arguments and returns as
-    :func:`run_adabelief_batched`. Each iteration costs
-    :data:`LBFGS_LINESEARCH_STEPS` evaluations of all frames (one more at
-    the start).
-    """
-    x, spec = flatten_batched(free0)
-    x = x.detach().clone()
-    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    value_and_grad = _value_and_grad_batched(loss_fn, spec)
-    n_frames = x.shape[0]
-    memory_size = LBFGS_MEMORY
-    dparams = x.new_zeros(n_frames, memory_size, x.shape[1])
-    dgrads = torch.zeros_like(dparams)
-    rhos = x.new_zeros(n_frames, memory_size)
-    best = x.clone()
-    best_loss = torch.full((n_frames,), float("inf"), dtype=x.dtype,
-                           device=x.device)
-    history = torch.empty(n_frames, n_iter, dtype=x.dtype, device=x.device)
-    value, grad = value_and_grad(x)
-    prev_x = prev_g = None
-    for it in range(n_iter):
-        history[:, it] = value
+    The state: x, the pair (value, grad) carried from the line search,
+    the clipped flags, the previous point and gradient, the memory (rolled:
+    the newest pair last, so the two-loop recursion runs oldest first, as
+    optax's ring from ``count % memory``), the best point and loss, and the
+    counter. With ``exact_bounds`` (JAX's ``lbfgsb_scan`` default) the step
+    evaluates at x every iteration and takes that pair where the previous
+    step was clipped or the carried value is not finite (optax's
+    ``value_and_grad_from_state``; the first step's carried value is
+    infinite): ``lax.cond`` as a select, as JAX's vmapped caller pays it,
+    so an iteration costs 1 + :data:`LBFGS_LINESEARCH_STEPS` evaluations.
+    Without it the pair at the unprojected step is carried, and an
+    iteration costs the line search's evaluations (one more at the start).
+    Each step writes its loss to ``history[:, it]``."""
+    n_frames, n_par = x.shape
+    memory = x.new_zeros(n_frames, LBFGS_MEMORY, n_par)
+    inf = torch.full((n_frames,), float("inf"), dtype=x.dtype,
+                     device=x.device)
+    if exact_bounds:
+        value, grad = inf.clone(), torch.zeros_like(x)
+    else:
+        value, grad = value_and_grad(x)
+    clipped = torch.zeros(n_frames, dtype=torch.bool, device=x.device)
+
+    def step(state):
+        (x, value, grad, clipped, prev_x, prev_g, dparams, dgrads, rhos,
+         best, best_loss, it) = state
+        if exact_bounds:
+            fresh_value, fresh_grad = value_and_grad(x)
+            redo = clipped | ~torch.isfinite(value)
+            value = torch.where(redo, fresh_value, value)
+            grad = torch.where(redo[:, None], fresh_grad, grad)
+        history.index_copy_(1, it.view(1), value[:, None])
         improved = value < best_loss
         best_loss = torch.where(improved, value, best_loss)
         best = torch.where(improved[:, None], x, best)
-        if prev_x is None:
-            gamma = torch.clamp(1.0 / grad.norm(dim=-1), max=1.0)
-        else:
-            dp, dg = x - prev_x, grad - prev_g
-            curv = (dg * dp).sum(-1)
-            slot = (it - 1) % memory_size
-            dparams[:, slot] = dp
-            dgrads[:, slot] = dg
-            rhos[:, slot] = torch.where(curv == 0.0, torch.zeros_like(curv),
-                                        1.0 / curv)
-            norm2 = (dg * dg).sum(-1)
-            gamma = torch.where(norm2 > 0.0, curv / norm2,
-                                torch.ones_like(curv))
-        # two-loop recursion, oldest slot first (optax's memory order)
-        order = [(it + j) % memory_size for j in range(memory_size)]
-        q, alphas = grad, {}
-        for k in reversed(order):
+        # the pair of the last step; none at the first (optax's count 0)
+        later = it > 0
+        dp = torch.where(later, x - prev_x, torch.zeros_like(x))
+        dg = torch.where(later, grad - prev_g, torch.zeros_like(x))
+        curv = (dg * dp).sum(-1)
+        rho = torch.where(curv == 0.0, torch.zeros_like(curv), 1.0 / curv)
+        norm2 = (dg * dg).sum(-1)
+        gamma = torch.where(norm2 > 0.0, curv / norm2,
+                            torch.ones_like(curv))
+        gamma = torch.where(later, gamma,
+                            torch.clamp(1.0 / grad.norm(dim=-1), max=1.0))
+        dparams = torch.cat((dparams[:, 1:], dp[:, None]), dim=1)
+        dgrads = torch.cat((dgrads[:, 1:], dg[:, None]), dim=1)
+        rhos = torch.cat((rhos[:, 1:], rho[:, None]), dim=1)
+        # two-loop recursion, oldest pair first
+        q, alphas = grad, [None] * LBFGS_MEMORY
+        for k in reversed(range(LBFGS_MEMORY)):
             alphas[k] = rhos[:, k] * (dparams[:, k] * q).sum(-1)
             q = q - alphas[k][:, None] * dgrads[:, k]
         q = gamma[:, None] * q
-        for k in order:
+        for k in range(LBFGS_MEMORY):
             beta = rhos[:, k] * (dgrads[:, k] * q).sum(-1)
             q = q + (alphas[k] - beta)[:, None] * dparams[:, k]
-        prev_x, prev_g = x, grad
-        step, value, grad = _zoom_linesearch(
+        t, new_value, new_grad = _zoom_linesearch(
             value_and_grad, x, value, grad, -q, LBFGS_LINESEARCH_STEPS)
-        x = torch.clamp(x - step[:, None] * q, lo, hi)
+        raw = x - t[:, None] * q
+        new_x = torch.clamp(raw, lo, hi)
+        return (new_x, new_value, new_grad, (raw != new_x).any(-1), x, grad,
+                dparams, dgrads, rhos, best, best_loss, it + 1)
+
+    state = (x, value, grad, clipped, torch.zeros_like(x),
+             torch.zeros_like(x), memory, memory.clone(),
+             x.new_zeros(n_frames, LBFGS_MEMORY), x.clone(), inf.clone(),
+             torch.zeros((), dtype=torch.int64, device=x.device))
+    return StepLoop(step, state, eager=eager)
+
+
+def run_lbfgsb(loss_fn, free0, lower, upper, n_iter, *, eager=False):
+    """Projected L-BFGS, JAX's ``lbfgsb_scan`` with ``exact_bounds=True``:
+    the step of :func:`run_lbfgsb_batched` on one problem, which after a
+    clipped step takes the value and gradient again at the projected point
+    (:func:`_lbfgs_loop`). ``eager`` as :func:`run_adabelief`.
+
+    Returns:
+        (best_free, final_free, loss_history[n_iter]), the history a numpy
+        array.
+    """
+    n_iter = int(n_iter)
+    theta, spec = flatten(free0)
+    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
+    single = _value_and_grad(loss_fn, spec)
+
+    def value_and_grad(vec):
+        value, grad = single(vec[0])
+        return value.reshape(1), grad[None]
+
+    history = torch.empty(1, n_iter, dtype=theta.dtype, device=theta.device)
+    loop = _lbfgs_loop(value_and_grad, theta.detach().clone()[None], lo, hi,
+                       history, True, eager)
+    loop.run(n_iter)
+    x, best = loop.state[0], loop.state[9]
+    return (_free_from(best[0], spec, free0), _free_from(x[0], spec, free0),
+            history[0].cpu().numpy())
+
+
+def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter, *,
+                       eager=False):
+    """Projected L-BFGS over F independent problems, as ``lbfgsb_scan``
+    behaves under ``jax.vmap`` with ``exact_bounds=False``: per frame,
+    :func:`_lbfgs_loop`'s step, carrying the line search's value and
+    gradient at the unprojected step into the next iteration. Arguments
+    and returns as :func:`run_adabelief_batched`. Each iteration costs
+    :data:`LBFGS_LINESEARCH_STEPS` evaluations of all frames (one more at
+    the start).
+    """
+    n_iter = int(n_iter)
+    x, spec = flatten_batched(free0)
+    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
+    history = torch.empty(x.shape[0], n_iter, dtype=x.dtype, device=x.device)
+    loop = _lbfgs_loop(_value_and_grad_batched(loss_fn, spec),
+                       x.detach().clone(), lo, hi, history, False, eager)
+    loop.run(n_iter)
+    x, best = loop.state[0], loop.state[9]
     return (unflatten_batched(best, spec), unflatten_batched(x, spec),
             history)
 
@@ -771,16 +948,18 @@ def _resume(path, carry, history, n_iter, inputs_digest, share):
             share.local(share.broadcast(full_history)))
 
 
-def run_segments(steps, carry, history, n_iter, checkpoint_path,
-                 checkpoint_every, inputs_digest, share=None):
-    """Drive ``steps(carry, iterations) -> carry`` over ``range(n_iter)``:
-    in one segment without a path; else resume from the checkpoint at
-    ``checkpoint_path`` if there is one (its history goes to
-    ``history[..., :done]``) and write one after every
-    ``checkpoint_every`` iterations. ``share`` (a
+def run_segments(loop, history, n_iter, checkpoint_path, checkpoint_every,
+                 inputs_digest, share=None):
+    """Run ``loop`` (a :class:`StepLoop` whose state starts with the
+    :data:`N_CARRY` carry leaves and the iteration counter) for ``n_iter``
+    steps and return its carry: in one segment without a path; else
+    resume from the checkpoint at ``checkpoint_path`` if there is one (its
+    carry and counter go into the state, its history to ``history[...,
+    :done]``) and write one after every ``checkpoint_every`` iterations,
+    reading the carry back between replays. ``share`` (a
     ``parallel.batch.CheckpointShare``) shares the file between ranks."""
     if checkpoint_path is None:
-        return steps(carry, range(n_iter))
+        return loop.run(n_iter)[:N_CARRY]
     every = int(checkpoint_every)
     if every <= 0:
         raise ValueError(
@@ -791,23 +970,25 @@ def run_segments(steps, carry, history, n_iter, checkpoint_path,
         return x if share is None else share.full(x)
 
     done = 0
-    resumed = _resume(checkpoint_path, carry, history, n_iter, inputs_digest,
-                      share)
+    resumed = _resume(checkpoint_path, loop.state[:N_CARRY], history, n_iter,
+                      inputs_digest, share)
     if resumed is not None:
         carry, done, stored = resumed
+        counter = torch.full((), done, dtype=torch.int64, device=loop.device)
+        loop.state = tuple(carry) + (counter,) + loop.state[N_CARRY + 1:]
         history[..., :done] = stored[..., :done]
     while done < n_iter:
         stop = min(done + every, n_iter)
-        carry = steps(carry, range(done, stop))
+        loop.run(stop - done)
         done = stop
-        written = tuple(whole(x) for x in carry)
+        written = tuple(whole(x) for x in loop.state[:N_CARRY])
         written_history = whole(history[..., :done])
         if share is None or share.is_writer:
             save_checkpoint(checkpoint_path, written, n_iter, done,
                             written_history, inputs_digest=inputs_digest)
         if share is not None:
             share.barrier()
-    return carry
+    return loop.state[:N_CARRY]
 
 
 def _free_from(vec, spec, free0, batched=False):
@@ -863,7 +1044,10 @@ class Optimizer:
         ``param_history`` (the free tree of numpy arrays with a leading
         snapshot axis) and ``param_history_iterations``. The options
         raise ``ValueError`` with L-BFGS or with a checkpoint.
-        ``progress_bar`` is accepted and unused.
+        A loss that all-reduces over a process group (a fit under a
+        mesh) runs its steps eagerly (``eager`` of the loops); any other
+        replays a CUDA graph on the card. ``progress_bar`` is accepted
+        and unused.
         """
         del progress_bar
         t0 = time.time()
@@ -878,6 +1062,7 @@ class Optimizer:
                 "stop_at_loss_increase / return_param_history are only "
                 "implemented for method='adabelief'")
         extra = {}
+        eager = getattr(self.loss, "group", None) is not None
         if self.method == "adabelief":
             best, _, hist, stopped_at, snaps, snap_iters = \
                 run_adabelief_extended(
@@ -888,7 +1073,7 @@ class Optimizer:
                     checkpoint_path=checkpoint_path,
                     checkpoint_every=checkpoint_every,
                     inputs_digest=checkpoint_inputs_digest,
-                    checkpoint_share=checkpoint_share)
+                    checkpoint_share=checkpoint_share, eager=eager)
             if extended:
                 extra["stopped_at"] = stopped_at
             if return_param_history:
@@ -896,7 +1081,7 @@ class Optimizer:
                 extra["param_history_iterations"] = snap_iters
         else:
             best, _, hist = run_lbfgsb(self.loss.loss_fn, free0, p.lower,
-                                       p.upper, n_iter)
+                                       p.upper, n_iter, eager=eager)
         self.loss_history = hist
         p.set_best(best)
         logL = float(np.nanmin(hist)) \

@@ -62,8 +62,9 @@ def _subset(tree, like):
 
 def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
                 field_distortion, n_iter_analytic, n_iter_adabelief,
-                regularization_strength, adabelief_lr, dft_mats):
-    """The two-phase fit of F frames; tensors in, tensors out."""
+                regularization_strength, adabelief_lr, dft_mats, eager):
+    """The two-phase fit of F frames; tensors in, tensors out. ``eager``:
+    the optimizers' steps without a CUDA graph (under a mesh)."""
     n_frames, n_stars = data.shape[:2]
     device = data.device
     model, loss_moffat, loss_pixels = phase_losses(
@@ -104,7 +105,8 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
         "kwargs_distortion": distortion0}}
     best1, _, hist1 = run_lbfgsb_batched(
         lambda free: loss_moffat(free, consts1), free1,
-        _subset(lower, free1), _subset(upper, free1), n_iter_analytic)
+        _subset(lower, free1), _subset(upper, free1), n_iter_analytic,
+        eager=eager)
 
     # ---- phase 2: pixel grid (+ distortion), Moffat fixed ---------------
     free2 = {"kwargs_gaussian": best1["kwargs_gaussian"],
@@ -138,7 +140,8 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
     best2, _, hist2 = run_adabelief_batched(
         lambda free: loss_pixels(free, consts2), free2,
         _subset(lower, free2), _subset(upper, free2), n_iter_adabelief,
-        init_learning_rate=adabelief_lr, schedule_learning_rate=True)
+        init_learning_rate=adabelief_lr, schedule_learning_rate=True,
+        eager=eager)
 
     kwargs_final = {**fixed2, **best2}
     with torch.no_grad():
@@ -249,7 +252,8 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
         on(guess_fwhm_pixels), int(n_pix), s, bool(field_distortion),
         int(n_iter_analytic), int(n_iter_adabelief),
         float(regularization_strength), float(adabelief_lr),
-        psf_dft_mats(int(n_pix) * s, s, irfft_backend, dft_pad, device))
+        psf_dft_mats(int(n_pix) * s, s, irfft_backend, dft_pad, device),
+        mesh is not None)
     if mesh is not None:
         out = strip_batch(gather_to_host(mesh, out), n_pad)
     if fetch == "device":

@@ -22,7 +22,9 @@ plane for every epoch, or (G, L, Lh), one per group of N / G consecutive
 epochs (the star photometry's per-star background); dh comes back in the
 same layout, each plane summed over its group. The counts in
 :data:`launches` grow by one per call that launches the kernels and
-nowhere else.
+nowhere else, and by what a CUDA graph's capture recorded for each further
+replay of it (``core/optimize.py::StepLoop``: a replay does not pass the
+wrapper).
 
 Numbers: kernel times in PERF.md were taken on an NVIDIA H100 and carry
 the card's name and power limit; no TPU figure applies here.

@@ -10,7 +10,9 @@ loaded when this module is imported.
 
 Each wrapper takes a tensor of images. A CPU tensor goes to the plain twin
 in ``core/starlet.py``; a CUDA tensor launches the kernel or raises. The
-counts in :data:`launches` grow by one per kernel launch and nowhere else.
+counts in :data:`launches` grow by one per kernel launch and nowhere else,
+and by what a CUDA graph's capture recorded for each further replay of it
+(``core/optimize.py::StepLoop``: a replay does not pass the wrapper).
 
 The design and what bounds it: one image is spread over a thread-block
 cluster of C CTAs, each owning a band of R = ceil(m / C) rows; halo rows

@@ -9,11 +9,12 @@ the per-epoch parameters with the data and lets XLA insert the psum of
 the shared gradients. This port does not copy those per-leaf shardings:
 
 - every parameter and all optimizer state are REPLICATED on every rank of
-  the epoch group; the optimizers (``torch.optim.LBFGS``, the batched
-  L-BFGS and AdaBelief) take inner products over their whole parameter
-  vector, which per-epoch shards would turn into distributed dot
-  products; replication needs none, and it is small (at ROI-100, h with
-  128^2 floats plus 100 x 8 per-epoch values: ~68 KB an all-reduce);
+  the epoch group; the optimizers (L-BFGS and AdaBelief of
+  ``core/optimize.py``, single and batched) take inner products over
+  their whole parameter vector, which per-epoch shards would turn into
+  distributed dot products; replication needs none, and it is small (at
+  ROI-100, h with 128^2 floats plus 100 x 8 per-epoch values: ~68 KB an
+  all-reduce);
 - only the constants are SHARDED along the epoch axis: data, noise
   variance, the per-epoch PSF spectra and the render constants built from
   them, ``epoch_w`` and the fixed-h render (``Loss(epochs=..., group=...)``
@@ -186,7 +187,10 @@ def sharded_deconv_step(loss, params, learning_rate=1e-3):
         grad, = torch.autograd.grad(value, x)
         theta, mu, nu = _adabelief_update(
             theta, grad, mu, nu, flatten_like(lower, spec),
-            flatten_like(upper, spec), count, 1, learning_rate, False)
+            flatten_like(upper, spec),
+            torch.full((), count + 1, dtype=theta.dtype, device=theta.device),
+            torch.full((), learning_rate, dtype=theta.dtype,
+                       device=theta.device))
         return unflatten(theta, spec), (mu, nu, count + 1), value.detach()
 
     return step, opt_state0
@@ -258,9 +262,10 @@ def fit_deconv_sharded(data, sigma_2, psf, xs, ys, subsampling_factor, mesh,
     loss = Loss(data_p, model_p, params, sigma_2_p, epoch_weights=epoch_w,
                 epochs=epoch_range(mesh, data_p.shape[0]),
                 group=mesh.get_group(EPOCH_AXIS), **loss_kwargs)
+    # the loss all-reduces over the mesh: the step runs eagerly
     best, _, history = run_adabelief(
         loss.loss_fn, params.free0, params.lower, params.upper, n_iter,
-        init_learning_rate=init_learning_rate)
+        init_learning_rate=init_learning_rate, eager=True)
     params.set_best(best)
     kwargs_best = strip_epoch_kwargs(
         kwargs_to_numpy(params.best_fit_values(as_kwargs=True)),

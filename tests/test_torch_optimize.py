@@ -1,8 +1,14 @@
 """Port parity: AdaBelief (optax semantics) and projected L-BFGS.
 
-AdaBelief follows the same path as optax, so its loss histories are held
-to rtol 1e-5. L-BFGS uses another line search than optax's zoom, so only
-its final loss is held to JAX's ``run_lbfgsb`` (rtol 1e-4).
+AdaBelief follows the same path as optax, its rate and bias corrections
+in float32 from the count, so its loss histories are held to rtol 1e-5,
+with and without the schedule and with the freeze and the snapshots on.
+L-BFGS is JAX's ``lbfgsb_scan`` (optax's L-BFGS, zoom line search, box
+projection, the exact-bounds retake): its history is held to JAX's over
+the first iterations at rtol 1e-5, until float32 rounding parts them (a
+one-ulp change of JAX's own start parts JAX from itself by 1.5e-4 to
+2.3e-3 of the loss within 40 iterations on these problems), and its best
+loss at rtol 3e-5, on the free problem and where the projection clips.
 """
 
 import logging
@@ -89,19 +95,90 @@ def test_adabelief_history_matches_optax(schedule):
                                                        np.abs(ref).max()))
 
 
-def test_lbfgs_final_loss_matches_jax():
-    jl, jp, tl, tp = _fits(stage=1)
-    n_iter = 40
+# L-BFGS against JAX: the iterations over which the two paths are held
+# at LBFGS_HISTORY_RTOL, and the bar of the best loss
+LBFGS_SAME_ITERS, LBFGS_HISTORY_RTOL, LBFGS_BEST_RTOL = 8, 1e-5, 3e-5
+
+
+def _lbfgs_against_jax(n_iter, **bounds):
+    """(port's history, JAX's, the best loss of each, the torch problem)
+    of ``run_lbfgsb`` on the stage-1 problem."""
+    jl, jp, tl, tp = _fits(stage=1, **bounds)
     jbest, _, jhist = jopt.run_lbfgsb(jl.loss_fn, jp.free0, jp.lower,
                                       jp.upper, n_iter, consts=jl.consts)
     tbest, _, thist = topt.run_lbfgsb(tl.loss_fn, tp.free0, tp.lower,
                                       tp.upper, n_iter)
     assert thist.shape == (n_iter,)
-    assert thist[-1] < 0.5 * thist[0]
     final_j = float(jl.loss_fn(jbest, jl.consts))
     with torch.no_grad():
         final_t = tl.loss_fn(tbest).item()
-    np.testing.assert_allclose(final_t, final_j, rtol=1e-4)
+    return thist, np.asarray(jhist), final_t, final_j, (tl, tp, tbest)
+
+
+def test_lbfgs_final_loss_matches_jax():
+    thist, jhist, final_t, final_j, _ = _lbfgs_against_jax(40)
+    assert thist[-1] < 0.5 * thist[0]
+    np.testing.assert_allclose(thist[:LBFGS_SAME_ITERS],
+                               jhist[:LBFGS_SAME_ITERS],
+                               rtol=LBFGS_HISTORY_RTOL)
+    np.testing.assert_allclose(final_t, final_j, rtol=LBFGS_BEST_RTOL)
+
+
+@pytest.mark.parametrize("bounds", [dict(dx=0.05, dy=0.05), dict(dx=0.02)],
+                         ids=["dx-dy-0.05", "dx-0.02"])
+def test_lbfgs_clipped_steps_match_jax(bounds):
+    """A box the steps run into: the history and the best loss against
+    JAX's, the best point on the bound, and JAX's exact-bounds retake:
+    after a clipped step the next history entry is the loss at the
+    projected point, to the bit."""
+    thist, jhist, final_t, final_j, (tl, tp, tbest) = _lbfgs_against_jax(
+        40, **bounds)
+    np.testing.assert_allclose(thist[:LBFGS_SAME_ITERS],
+                               jhist[:LBFGS_SAME_ITERS],
+                               rtol=LBFGS_HISTORY_RTOL)
+    np.testing.assert_allclose(final_t, final_j, rtol=LBFGS_BEST_RTOL)
+    dx = tbest["kwargs_analytic"]["dx"]
+    assert int((dx.abs() == bounds["dx"]).sum()) > 0
+    for k in (3, 9):
+        _, final, _ = topt.run_lbfgsb(tl.loss_fn, tp.free0, tp.lower,
+                                      tp.upper, k)
+        assert int((final["kwargs_analytic"]["dx"].abs()
+                    == bounds["dx"]).sum()) > 0
+        with torch.no_grad():
+            at_projected = tl.loss_fn(final).item()
+        assert at_projected == thist[k]
+
+
+@pytest.mark.parametrize("schedule", [False, True])
+def test_adabelief_options_match_optax(schedule):
+    """The freeze and the snapshot ring on, against JAX's
+    ``adabelief_scan_extended`` (at lr 3e-2 the loss rises at iteration
+    13 without the schedule, and never with it): the history at rtol
+    1e-5, the stop iteration, the snapshots' iterations, and the
+    snapshots at 1e-5 of each leaf's largest value, the background grid
+    at 1e-3 (AdaBelief moves each grid pixel by about the rate whatever
+    its gradient's size, so the rounding of a near-zero gradient's sign
+    shows there first: 2.5e-4 measured)."""
+    jl, jp, tl, tp = _fits(stage=2)
+    n_iter, lr = 40, 3e-2
+    jbest, _, jhist, jstop, jsnap, jits = jopt._run_adabelief_extended(
+        loss_fn=jl.loss_fn, free0=jp.free0, consts=jl.consts,
+        lower=jp.lower, upper=jp.upper, n_iter=n_iter,
+        init_learning_rate=lr, schedule_learning_rate=schedule,
+        stop_at_loss_increase=True, min_iterations=5, n_param_snapshots=16)
+    tbest, _, thist, tstop, tsnap, tits = topt.run_adabelief_extended(
+        tl.loss_fn, tp.free0, tp.lower, tp.upper, n_iter, lr, schedule,
+        True, 5, 16)
+    assert tstop == int(jstop)
+    np.testing.assert_allclose(thist, np.asarray(jhist), rtol=1e-5)
+    np.testing.assert_array_equal(tits, np.asarray(jits))
+    for g, d in tsnap.items():
+        for k, v in d.items():
+            ref = np.asarray(jsnap[g][k])
+            bar = 1e-3 if k == "h" else 1e-5
+            np.testing.assert_allclose(v.numpy(), ref, rtol=0,
+                                       atol=bar * max(1.0,
+                                                      np.abs(ref).max()))
 
 
 @pytest.mark.parametrize("method", ["adabelief", "l-bfgs-b"])
