@@ -178,7 +178,19 @@ prints no result:
    (``check_shard_ranks`` says why); the two ranks' results must be equal
    to the bit, their launches exact, and each rank's K1 and K2 launches
    come back on a JSON line; a rank that fails or outlives its timeout
-   fails the phase.
+   fails the phase. After the four fits both ranks run the three fit
+   tasks' device bodies under the pipeline's rank rule on phase 11's
+   in-memory jobs at 14b's budgets: the PSF task's two buckets of 16
+   frames (matmul at ``dft_pad`` 16, 100 + 300) and the star task's two
+   buckets of 32 stars (starlet background, matmul, 300 iterations)
+   through ``psf_modelling.run_pipelined_buckets`` (rank 0's buckets,
+   each prepared on rank 0 and broadcast on the main thread; every rank
+   fits it with ``mesh="auto"``; rank 0 alone stores), and the ROI-100
+   scene at 50 + 300 iterations through ``roi_modelling.fit_then_write``
+   (every rank fits; rank 0 alone writes): the ranks' fits bit-equal and
+   finite, exact launches (the ROI's as 14b's "roi"), and rank 0 alone
+   stored, each of the 32 frames, 64 stars and one ROI once, counted by
+   the store and the write that the rule called.
 
 15. the notebook API (the JAX package's top-level names) and the host
    C++ of ``native/``:
@@ -244,6 +256,21 @@ prints no result:
    the warm-up and the capture; the better of two runs), the walls, and
    the script's elapsed time.
 
+18. BASELINE.json's config 5, the JAX package's survey scale (its
+   ``bench.py``'s 1000-epoch scene): 18a K2 forward and backward with the
+   background channel at N 1000 and at N 250 (one rank's share of four),
+   n 64, L 256, four sources, against the plain twin at phase 3b's bar,
+   with kernel and twin each against the twin in float64, timed beside
+   the twin and the bounds; 18b, 18c ROI-1000
+   (``make_roi_scene(n_epochs=1000, n_pix=64, s=2, n_sources=4)``)
+   through ``fit_roi`` unsharded at the shipped recipe on cuFFT and on
+   matmul: finite outputs, a mean reduced chi2 in [0.9, 1.1], the two
+   renders' chi2 per epoch within 1 %, exactly ROI-100's K1 and K2
+   launches on the same render (phases 5 and 5b), the wall and the
+   card's peak memory (``torch.cuda.max_memory_allocated``). Its
+   epoch-sharded twin on four cards is
+   ``tools/torch_shard_probe.py --ranks 4``.
+
 Every unsharded fit replays its optimizer step as a CUDA graph
 (``core/optimize.py``), so phases 4 to 11, 13 and 15 run captured; the
 sharded fits of phase 14 call their steps eagerly. The wrappers' launch
@@ -255,9 +282,10 @@ rate of the units that can run them, from the shapes of this run and the
 port's work formulas, ``starlet_cuda.work`` and
 ``fused_render_cuda.work``) and its launches over every run of the main
 path (phases 5, 5b, 7, 7b, 9 to 9d, 10, 10b, 11's pipelined runs, 13's
-pipeline run, 14a, both ranks of 14b, 15a, 16, whose graph replays
-are counted from the launches each capture recorded, and 17), and, last,
-the device line. There is no CPU path: without a card the script fails.
+pipeline run, 14a, both ranks of 14b with their tasks, 15a, 16, whose
+graph replays are counted from the launches each capture recorded, 17
+and 18), and, last, the device line. There is no CPU path: without a
+card the script fails.
 """
 
 import json
@@ -1831,7 +1859,23 @@ SHARD_STAR_ITERS = 300
 # stars (stars, epochs, px)
 SHARD_SCENES = dict(roi=(100, 64, 0.3), psf=(16, 8, 64),
                     stars=(32, 100, 24))
-SHARD_TIMEOUT_S = 420
+SHARD_TIMEOUT_S = 480
+# 14b's fits and, after them, the three fit tasks' device bodies under
+# the pipeline's rank rule; "roi1000" is phase 18's ROI-1000 sharded
+# (tools/torch_shard_probe.py --ranks 4)
+SHARD_FITS = ("roi", "psf", "stars", "star1", "tasks")
+# 14b's names that are no fit of shard_fits: the fit tasks, and the
+# broadcast of a config-5 star bucket (tools/torch_shard_probe.py)
+SHARD_STEPS = ("tasks", "broadcast")
+SHARD_TASK_PSF = {"subsampling_factor": 2, "psf_n_iter_analytic": 100,
+                  "psf_n_iter_pixels": SHARD_PSF_BUDGET["n_iter_adabelief"],
+                  "field_distortion": False, "psf_dft_pad": 16}
+SHARD_TASK_STARS = {**TASK_STAR_CONFIGS[0],
+                    "star_deconv_n_iter": SHARD_STAR_ITERS}
+SHARD_TASK_STAR_EPOCHS = ([100] * 32, [100 - 10 * (i % 4) for i in range(32)])
+# the ROI task's fit in 14b: the ROI-100 scene, matmul (the ranks force it)
+SHARD_TASK_ROI = dict(roi_deconv_translations_iters=50,
+                      roi_deconv_all_iters=300)
 
 # phase 15: the single star's budget (half phase 9's: at 1000 iterations
 # the starlet fit's mean reduced chi2 is 0.982 against 0.981 at 2000, on
@@ -1881,8 +1925,11 @@ def shard_fits(np, torch, mesh, counters, names, perturb=None):
     of this world; None: unsharded): ``{name: (result, wall, launches)}``.
     "roi" is ROI-100 (matmul, ``SHARD_ROI_BUDGET``); "psf" PSF-16,
     "psf/R/N" the unsharded fit of the frames rank R of N fits; "stars"
-    STAR-32 with the starlet background, "star1" its first star.
-    ``perturb`` multiplies the PSF frames (a rounding floor)."""
+    STAR-32 with the starlet background, "star1" its first star;
+    "roi1000" phase 18's ROI-1000 at the shipped recipe (matmul).
+    ``perturb`` multiplies the PSF frames and the ROI-1000 data (a
+    rounding floor). Each entry is (result, wall, launches, the card's
+    peak memory in bytes)."""
     from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
     from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
@@ -1911,9 +1958,18 @@ def shard_fits(np, torch, mesh, counters, names, perturb=None):
             frames[0][part], frames[1][part], 2, **SHARD_PSF_BUDGET,
             irfft_backend="matmul", dft_pad=16, mesh=mesh, device="cuda")
 
+    def roi1000():
+        survey = make_roi_scene(n_epochs=SURVEY_EPOCHS, n_pix=64, s=2,
+                                n_sources=4)
+        if perturb is not None:
+            survey["data"] = survey["data"] * np.float32(perturb)
+        return fit_scene(fit_roi, ROI_CONFIG, survey, "cuda", "matmul",
+                         mesh=mesh)
+
     runs = {
         "roi": lambda: fit_scene(fit_roi, {**ROI_CONFIG, **SHARD_ROI_BUDGET},
                                  scene, "cuda", "matmul", mesh=mesh),
+        "roi1000": roi1000,
         "psf": psf,
         "stars": lambda: stars(len(sc["data"])),
         "star1": lambda: stars(1),
@@ -1928,16 +1984,19 @@ def shard_fits(np, torch, mesh, counters, names, perturb=None):
         run = runs[name]
         counters(reset=True)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
-        out[name] = (result, time.perf_counter() - t0, counters())
+        out[name] = (result, time.perf_counter() - t0, counters(),
+                     torch.cuda.max_memory_allocated())
     return out
 
 
 def shard_arrays(np, fits):
     """The arrays of ``shard_fits``' results, flat, for an npz."""
     keys = {"roi": ("fluxes", "flux_errors", "reduced_chi2", "W"),
+            "roi1000": ("fluxes", "flux_errors", "reduced_chi2", "W"),
             "psf": ("narrow_psf", "full_psf", "chi2"),
             "stars": ("fluxes", "fluxes_uncertainties", "chi2"),
             "star1": ("fluxes", "fluxes_uncertainties", "chi2")}
@@ -1945,11 +2004,139 @@ def shard_arrays(np, fits):
             for name in fits for key in keys[name.split("/")[0]]}
 
 
-def shard_rank(rank, work):
-    """One rank of phase 14b, run as ``chip_smoke.py --shard-rank``:
-    bootstrap from torchrun's variables, run ``shard_fits`` on
-    ``mesh="auto"``, write the results to ``work/rank{rank}.npz`` and
-    print the launches and walls on one JSON line."""
+def shard_tasks(np, torch, counters):
+    """14b's three fit tasks' device bodies under the pipeline's rank rule,
+    on phase 11's in-memory jobs at 14b's budgets: the PSF task's two
+    buckets of 16 frames (the second with 6 stars in every other frame;
+    matmul at ``dft_pad`` 16, 100 + 300 iterations) and the star task's
+    two buckets of 32 stars (starlet background, matmul, 300 iterations),
+    each through ``run_pipelined_buckets`` (rank 0's buckets, prepared on
+    rank 0 and broadcast on the main thread, every rank fitting with
+    ``mesh="auto"``, rank 0 alone storing), then 14b's ROI-100 scene at
+    ``SHARD_TASK_ROI`` through the ROI task's ``fit_then_write`` (every
+    rank fits, rank 0 alone writes). Returns (every rank's fitted arrays,
+    flat, for the npz; the stores this rank made per task, each counted
+    by the ``store`` or ``write`` the rule called; the launches and the
+    walls of "tasks", the PSF and star tasks, and of "roi task")."""
+    from lightcurver_tpu_torch.core.params import kwargs_to_numpy
+    from lightcurver_tpu_torch.parallel.distributed import is_writer
+    from lightcurver_tpu_torch.processes import (psf_modelling,
+                                                 roi_modelling,
+                                                 star_photometry)
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, star_photometry_scene)
+
+    arrays, stores = {}, {"psf": 0, "stars": 0, "roi": 0}
+    buckets_fitted = {"psf": 0, "stars": 0}
+
+    def dispatched(task, dispatch):
+        """``dispatch``, keeping each bucket's fit on every rank."""
+        def run(chunk):
+            out = kwargs_to_numpy(dispatch(chunk))
+            bucket = buckets_fitted[task]
+            buckets_fitted[task] += 1
+            arrays.update({f"{task}/{bucket}/{key}": np.asarray(value)
+                           for key, value in out.items()
+                           if not isinstance(value, dict)})
+            return out
+        return run
+
+    def store(task):
+        def stored(chunk, out, t0):
+            stores[task] += len(chunk)
+        return stored
+
+    counters(reset=True)
+    t0 = time.perf_counter()
+    psf_buckets, star_buckets = [], []
+    if is_writer():
+        data, sigma = psf_bench_frames(32, 8, 64)
+        n_real = [[8] * 16, [8 if f % 2 == 0 else 6 for f in range(16)]]
+        seeing = [[None] * 16, [2.4 + 0.1 * f for f in range(16, 32)]]
+        psf_buckets = [(b, data[16 * b:16 * (b + 1)],
+                        sigma[16 * b:16 * (b + 1)], n_real[b], seeing[b])
+                       for b in range(2)]
+        star_buckets = [
+            star_task_jobs(star_photometry_scene(32, 100, 24, 2, **seed),
+                           epochs, b)
+            for b, (seed, epochs) in enumerate(zip(
+                ({}, {"seed0": 70}), SHARD_TASK_STAR_EPOCHS))]
+    psf_modelling.run_pipelined_buckets(
+        psf_buckets,
+        lambda b: psf_task_jobs(np, psf_modelling.mask_surrounding_stars,
+                                *b),
+        dispatched("psf", lambda chunk: psf_modelling._dispatch_fit_jobs(
+            SHARD_TASK_PSF, chunk, device="cuda", irfft_backend="matmul")),
+        store("psf"))
+    psf_modelling.run_pipelined_buckets(
+        star_buckets, lambda b: b,
+        dispatched("stars", lambda b: star_photometry._dispatch_star_jobs(
+            SHARD_TASK_STARS, b, fetch="device", device="cuda",
+            irfft_backend="matmul")),
+        store("stars"))
+    launches, walls = {"tasks": counters()[:4]}, {}
+    walls["tasks"] = time.perf_counter() - t0
+
+    def roi_written(fit):
+        stores["roi"] += 1
+
+    n_epochs, n_pix, noise = SHARD_SCENES["roi"]
+    scene = make_roi_scene(n_epochs=n_epochs, n_pix=n_pix, s=2, n_sources=4,
+                           seed=7, noise_sigma=noise)
+    counters(reset=True)
+    t0 = time.perf_counter()
+    fit = roi_modelling.fit_then_write(
+        lambda: fit_scene(roi_modelling.fit_roi,
+                          {**roi_modelling.ROI_CONFIG, **SHARD_TASK_ROI},
+                          scene, "cuda", "matmul", mesh="auto"),
+        roi_written)
+    launches["roi task"] = counters()
+    walls["roi task"] = time.perf_counter() - t0
+    arrays.update({f"roi/{key}": np.asarray(fit[key])
+                   for key in ("fluxes", "flux_errors", "reduced_chi2",
+                               "W")})
+    return arrays, stores, launches, walls
+
+
+def shard_broadcast(np):
+    """A config-5 star bucket from rank 0 to every rank through
+    ``broadcast_work``: the star task's jobs for 32 stars x 1000 epochs,
+    24 px, PSFs at s 2, float32 (442 MB of arrays). Returns (the wall of
+    the broadcast on this rank, after a first exchange that lines the
+    ranks up; the bytes of the arrays; the SHA-256 of the arrays as
+    received, for the ranks' bit comparison)."""
+    import hashlib
+
+    from lightcurver_tpu_torch.parallel.distributed import (broadcast_work,
+                                                            is_writer)
+
+    bucket = None
+    if is_writer():
+        rng = np.random.default_rng(5)
+        bucket = [{"star": {"gaia_id": f"s{i}"},
+                   "data": rng.random((1000, 24, 24), np.float32),
+                   "noisemap": rng.random((1000, 24, 24), np.float32),
+                   "psf": rng.random((1000, 48, 48), np.float32)}
+                  for i in range(32)]
+    broadcast_work(None)
+    t0 = time.perf_counter()
+    got = broadcast_work(bucket)
+    wall = time.perf_counter() - t0
+    arrays = [job[key] for job in got for key in ("data", "noisemap", "psf")]
+    digest = hashlib.sha256()
+    for array in arrays:
+        digest.update(array.tobytes())
+    return (wall, sum(a.nbytes for a in arrays),
+            np.frombuffer(digest.digest(), np.uint8))
+
+
+def shard_rank(rank, work, names=SHARD_FITS):
+    """One rank of phase 14b, run as ``chip_smoke.py --shard-rank R DIR
+    [NAMES]``: bootstrap from torchrun's variables, run ``shard_fits`` of
+    ``names`` on ``mesh="auto"`` and, with "tasks" or "broadcast" among
+    them, :func:`shard_tasks` or :func:`shard_broadcast`; write the
+    results to ``work/rank{rank}.npz`` and print the launches, walls, peak
+    memory and stores on one JSON line."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1970,11 +2157,25 @@ def shard_rank(rank, work):
           f"{want} expected")
     counters = launch_counters(starlet_cuda, fused_render_cuda.launches)
     fits = shard_fits(np, torch, "auto", counters,
-                      ("roi", "psf", "stars", "star1"))
-    np.savez(Path(work) / f"rank{rank}.npz", **shard_arrays(np, fits))
-    print("SHARD " + json.dumps({
-        "rank": rank, "walls": {k: v[1] for k, v in fits.items()},
-        "launches": {k: v[2] for k, v in fits.items()}}), flush=True)
+                      [n for n in names if n not in SHARD_STEPS])
+    arrays = shard_arrays(np, fits)
+    report = {"rank": rank, "walls": {k: v[1] for k, v in fits.items()},
+              "launches": {k: v[2] for k, v in fits.items()},
+              "peak_bytes": {k: v[3] for k, v in fits.items()}}
+    if "tasks" in names:
+        task_arrays, stores, launches, walls = shard_tasks(np, torch,
+                                                           counters)
+        arrays.update({"task." + k: v for k, v in task_arrays.items()})
+        report["launches"].update(launches)
+        report["walls"].update(walls)
+        report["stores"] = stores
+    if "broadcast" in names:
+        wall, n_bytes, digest = shard_broadcast(np)
+        arrays["broadcast.digest"] = digest
+        report["walls"]["broadcast"] = wall
+        report["broadcast_bytes"] = n_bytes
+    np.savez(Path(work) / f"rank{rank}.npz", **arrays)
+    print("SHARD " + json.dumps(report), flush=True)
     dist.destroy_process_group()
     return 0
 
@@ -2034,6 +2235,11 @@ def shard_expected(name, rank):
         return (n + 1, n, n, n)
     if name == "star1":
         return ((n + 1, n) if rank == 0 else (0, 0)) + (n, n)
+    if name == "tasks":
+        # two PSF buckets at K1 once each way a pixel iteration; two star
+        # buckets at 16 stars a rank: K1 n + 1 / n, K2 n / n each
+        pixels = 2 * SHARD_TASK_PSF["psf_n_iter_pixels"]
+        return (pixels + 2 * (n + 1), pixels + 2 * n, 2 * n, 2 * n)
     return None
 
 
@@ -2044,11 +2250,11 @@ def phase_shard_two(np, torch, counters, work, card):
     return check_shard_ranks(np, torch, counters, work, reports, wall, card)
 
 
-def run_shard_ranks(work, n_ranks=2):
+def run_shard_ranks(work, n_ranks=2, names=SHARD_FITS):
     """Start the ranks of phase 14b (two on the card; ``n_ranks`` on as
-    many cards, ``tools/torch_shard_probe.py --ranks``) and wait for them
-    (killed at ``SHARD_TIMEOUT_S``); returns (their JSON reports, the
-    wall)."""
+    many cards, ``tools/torch_shard_probe.py --ranks``), each running
+    ``names``, and wait for them (killed at ``SHARD_TIMEOUT_S``); returns
+    (their JSON reports, the wall)."""
     work.mkdir(parents=True, exist_ok=True)
     for old in work.glob("rank*.npz"):
         old.unlink()
@@ -2059,7 +2265,7 @@ def run_shard_ranks(work, n_ranks=2):
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(HERE / "chip_smoke.py"), "--shard-rank",
-         str(rank), str(work)],
+         str(rank), str(work), ",".join(names)],
         env={**env, "RANK": str(rank), "LOCAL_RANK": str(rank)},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=str(HERE)) for rank in range(n_ranks)]
@@ -2084,22 +2290,30 @@ def run_shard_ranks(work, n_ranks=2):
     return reports, wall
 
 
-def check_shard_ranks(np, torch, counters, work, reports, wall, card):
-    """Phase 14b's gates on the ranks' results and launches; returns the
-    launches of the ranks' fits, summed."""
+def check_shard_ranks(np, torch, counters, work, reports, wall, card,
+                      names=SHARD_FITS):
+    """Phase 14b's gates on the ranks' results, stores and launches of
+    ``names``; returns the launches of the ranks' fits, summed."""
+    from lightcurver_tpu_torch.processes.roi_modelling import ROI_CONFIG
+
     n_ranks = len(reports)
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(n_ranks)]
     for other in ranks[1:]:
+        check(other.keys() == ranks[0].keys(), "14b: the ranks fitted "
+              "different things")
         for key in ranks[0]:
             check(np.array_equal(ranks[0][key], other[key]),
                   f"14b: the ranks' {key} differ")
-    shares = [f"psf/{r}/{n_ranks}" for r in range(n_ranks)]
-    refs = shard_fits(np, torch, None, counters,
-                      ("roi", "psf", *shares, "stars", "star1"))
+    shares = [f"psf/{r}/{n_ranks}" for r in range(n_ranks)] \
+        if "psf" in names else []
+    fits = [n for n in names if n not in SHARD_STEPS]
+    refs = shard_fits(np, torch, None, counters, (*fits, *shares))
     ref = shard_arrays(np, refs)
     res = ranks[0]
-    for name in ("roi", "stars", "star1"):
-        flux, chi2 = ("fluxes", "reduced_chi2") if name == "roi" \
+    for name in ("roi", "roi1000", "stars", "star1"):
+        if name not in names:
+            continue
+        flux, chi2 = ("fluxes", "reduced_chi2") if name.startswith("roi") \
             else ("fluxes", "chi2")
         dmag = np.abs(2.5 * np.log10(res[f"{name}.{flux}"]
                                      / ref[f"{name}.{flux}"]))
@@ -2108,17 +2322,77 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card):
             f"{dmag.max() * 1e3:.4f} mmag, median "
             f"{np.median(dmag) * 1e3:.4f} mmag, max |dchi2|/chi2 "
             f"{dchi2.max():.2e}; bit-equal "
-            f"{np.array_equal(res[f'{name}.{flux}'], ref[f'{name}.{flux}'])}")
+            f"{np.array_equal(res[f'{name}.{flux}'], ref[f'{name}.{flux}'])}"
+            f"; the unsharded fit's peak memory "
+            f"{refs[name][3] / 2**30:.3f} GiB (card {card})")
         check(dmag.max() <= 1e-3, f"14b {name}: fluxes differ by > 1 mmag")
         check(dchi2.max() <= 0.01, f"14b {name}: chi2 differs by > 1 %")
+    if "roi1000" in names:
+        floor = shard_fits(np, torch, None, counters, ("roi1000",),
+                           perturb=1 + 1e-7)["roi1000"][0]
+        dmag = np.abs(2.5 * np.log10(floor["fluxes"]
+                                     / ref["roi1000.fluxes"]))
+        say("14b", f"roi1000: the unsharded fit's own rounding floor (data "
+            f"x (1 + 1e-7)): max |dmag| {dmag.max() * 1e3:.4f} mmag, median "
+            f"{np.median(dmag) * 1e3:.4f} mmag; mean reduced chi2 "
+            f"{float(np.mean(ref['roi1000.reduced_chi2'])):.4f} (card "
+            f"{card})")
+    if "psf" in names:
+        check_shard_psf(np, torch, counters, res, ref, shares, n_ranks)
+    if "tasks" in names:
+        check_shard_tasks(np, reports, res)
+    if "broadcast" in names:
+        walls = [r["walls"]["broadcast"] for r in reports]
+        say("14b", f"broadcast_work of a config-5 star bucket "
+            f"({reports[0]['broadcast_bytes'] / 1e6:.1f} MB of arrays) "
+            f"to {n_ranks} ranks: {min(walls):.3f}-{max(walls):.3f} s a "
+            f"rank; received bit-equal on every rank (card {card})")
+    total = [0, 0, 0, 0]
+    for report in reports:
+        rank = report["rank"]
+        for name, runs in report["launches"].items():
+            peak = report["peak_bytes"].get(name)
+            say("14b", f"rank {rank} {name}: {report['walls'][name]:.3f} s "
+                f"wall (unsharded "
+                f"{refs[name][1] if name in refs else float('nan'):.3f} s; "
+                f"card {card}); K1 launches forward {runs[0]}, adjoint "
+                f"{runs[1]}; K2 forward {runs[2]}, backward {runs[3]}"
+                + ("" if peak is None else
+                   f"; peak memory {peak / 2**30:.3f} GiB"))
+            want = shard_expected(name, rank)
+            check(want is None or tuple(runs[:4]) == want,
+                  f"14b rank {rank} {name}: launches {runs[:4]}, {want} "
+                  "expected")
+            total = [t + r for t, r in zip(total, runs[:4])]
+        for name, config in (("roi", SHARD_ROI_BUDGET),
+                             ("roi1000", ROI_CONFIG),
+                             ("roi task", SHARD_TASK_ROI)):
+            if name not in report["launches"]:
+                continue
+            roi = report["launches"][name]
+            n = config["roi_deconv_all_iters"]
+            check(roi[4] == roi[5] == n and min(roi[2:4]) > n,
+                  f"14b rank {rank} {name}: K2 launches {roi[2:]}: stage 2 "
+                  "one each way an iteration, stage 1 some, expected")
+            # the l1 term and the noise weights are rank 0's
+            want = (n + 1, n) if rank == 0 else (0, 0)
+            check(tuple(roi[:2]) == want, f"14b rank {rank} {name}: K1 "
+                  f"launches {roi[:2]}, {want} expected")
+    say("14b", f"{len(ranks)} ranks in {wall:.1f} s, process start "
+        "included; the ranks' results equal to the bit")
+    return total
 
-    # PSF-16 is chaotic in float32 at this budget: the card's kernels run
-    # a batch of 8 frames with other bits than one of 16, and a 1e-7
-    # change of the data moves a frame's PSF by more than its peak (the
-    # floor printed below). So the ranks are held against the unsharded
-    # fit of the same frames in the same batches (each rank's share),
-    # which isolates what the sharding does: pad, split, fit, gather and
-    # strip; the 16-frame fit is printed beside its own floor.
+
+def check_shard_psf(np, torch, counters, res, ref, shares, n_ranks):
+    """14b's PSF-16 against the unsharded fit of each rank's frames.
+
+    PSF-16 is chaotic in float32 at this budget: the card's kernels run a
+    batch of 8 frames with other bits than one of 16, and a 1e-7 change
+    of the data moves a frame's PSF by more than its peak (the floor
+    printed below). So the ranks are held against the unsharded fit of
+    the same frames in the same batches (each rank's share), which
+    isolates what the sharding does: pad, split, fit, gather and strip;
+    the 16-frame fit is printed beside its own floor."""
     def psf_gap(a, b, key):
         peak = np.abs(b[key]).max(axis=(1, 2))
         return (np.abs(a[key] - b[key]).max(axis=(1, 2)) / peak).max()
@@ -2143,31 +2417,42 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card):
     say("14b", f"psf: max |dchi2|/chi2 {dchi2:.2e} (vs the whole fit "
         f"{np.abs(got['chi2'] / whole['chi2'] - 1).max():.2e})")
     check(dchi2 <= 0.01, "14b psf: chi2 differs by > 1 %")
-    total = [0, 0, 0, 0]
+
+
+def check_shard_tasks(np, reports, res):
+    """14b's fit tasks under the rank rule: rank 0 alone stored, each
+    frame, star and ROI once; the fits finite (the ranks' bits were
+    compared with the rest; phase 11 gates these buckets' chi2 at the
+    full budgets, 14b's "roi" the ROI's at a larger budget)."""
+    want = {"psf": 32, "stars": 64, "roi": 1}
     for report in reports:
-        rank = report["rank"]
-        for name, runs in report["launches"].items():
-            say("14b", f"rank {rank} {name}: {report['walls'][name]:.3f} s "
-                f"wall (unsharded {refs[name][1]:.3f} s; card {card}); "
-                f"K1 launches forward {runs[0]}, adjoint {runs[1]}; K2 "
-                f"forward {runs[2]}, backward {runs[3]}")
-            want = shard_expected(name, rank)
-            check(want is None or tuple(runs[:4]) == want,
-                  f"14b rank {rank} {name}: launches {runs[:4]}, {want} "
-                  "expected")
-            total = [t + r for t, r in zip(total, runs[:4])]
-        roi = report["launches"]["roi"]
-        n = SHARD_ROI_BUDGET["roi_deconv_all_iters"]
-        check(roi[4] == roi[5] == n and min(roi[2:4]) > n,
-              f"14b rank {rank} roi: K2 launches {roi[2:]}: stage 2 one each "
-              "way an iteration, stage 1 some, expected")
-        # the l1 term and the noise weights are rank 0's
-        want = (n + 1, n) if rank == 0 else (0, 0)
-        check(tuple(roi[:2]) == want, f"14b rank {rank} roi: K1 launches "
-              f"{roi[:2]}, {want} expected")
-    say("14b", f"{len(ranks)} ranks in {wall:.1f} s, process start "
-        "included; the ranks' results equal to the bit")
-    return total
+        stores = report["stores"]
+        expected = want if report["rank"] == 0 else dict.fromkeys(want, 0)
+        say("14b", f"rank {report['rank']} tasks under the rank rule: "
+            f"stored {stores} (expected {expected})")
+        check(stores == expected, f"14b rank {report['rank']}: stores "
+              f"{stores}, {expected} expected")
+    for bucket in range(2):
+        chi2 = {"psf": res[f"task.psf/{bucket}/chi2"],
+                "stars": np.concatenate([
+                    row[:k] for row, k in zip(
+                        res[f"task.stars/{bucket}/chi2_per_frame"],
+                        SHARD_TASK_STAR_EPOCHS[bucket])])}
+        for task, fitted in (("psf", ("narrow_psf", "full_psf", "chi2")),
+                             ("stars", ("fluxes", "fluxes_uncertainties"))):
+            check(all(np.all(np.isfinite(res[f"task.{task}/{bucket}/{k}"]))
+                      for k in fitted), f"14b {task} task bucket "
+                  f"{bucket + 1}: non-finite results")
+            say("14b", f"{task} task bucket {bucket + 1}: the ranks' fits "
+                f"bit-equal and finite, mean reduced chi2 "
+                f"{float(np.mean(chi2[task])):.4f}")
+    roi = {k: res[f"task.roi/{k}"] for k in ("fluxes", "reduced_chi2")}
+    check(all(np.all(np.isfinite(v)) for v in roi.values()),
+          "14b ROI task: non-finite results")
+    say("14b", f"ROI task ({SHARD_TASK_ROI['roi_deconv_translations_iters']}"
+        f" + {SHARD_TASK_ROI['roi_deconv_all_iters']} iterations): the "
+        f"ranks' fits bit-equal and finite, mean reduced chi2 "
+        f"{float(np.mean(roi['reduced_chi2'])):.4f}")
 
 
 def one_ulp(np, data, seed):
@@ -2802,6 +3087,157 @@ def phase_captured_alone(small=True):
         starlet_cuda, fused_render_cuda.launches), card, cells)
 
 
+# phase 18: BASELINE.json's config 5, the JAX package's survey scale:
+# 1000 epochs at ROI-100's width (64 px, s 2, four sources) and recipe;
+# K2 at its whole epoch axis and at one rank's share of four
+SURVEY_EPOCHS = 1000
+SURVEY_K2_EPOCHS = (1000, 250)
+
+
+def phase_k2_survey(torch, k2_cuda, twin, setup_model, make_roi_scene, card):
+    """18a: K2 forward and backward with the background channel at
+    ROI-1000's shape (n 64, L 256, four sources) at N 1000 and at N 250,
+    against the plain twin at phase 3b's bar, and kernel and twin both
+    against the twin in float64 (the backward's dh is a sum over the
+    epochs, whose rounding grows with N); timed beside the twin and the
+    bounds. Returns ({N: {name: (ms, plain_ms, bound_ms, bound_by)}}, the
+    largest differences)."""
+    times, errs = {}, {}
+    for n_epochs in SURVEY_K2_EPOCHS:
+        scene = make_roi_scene(n_epochs=n_epochs, n_pix=64, s=2,
+                               n_sources=4, seed=11)
+        ops, g = k2_operands(torch, setup_model, scene, seed=n_epochs)
+        bwd_ops = (*ops[:8], *ops[10:])
+        wide = [x.double() for x in ops]
+        wide_bwd = (*wide[:8], *wide[10:])
+        times[n_epochs] = {}
+        for name, kernel, plain, exact in (
+                ("fused_render_forward", lambda: [k2_cuda.forward(*ops)],
+                 lambda: [twin.render_plain(*ops)],
+                 lambda: [twin.render_plain(*wide)]),
+                ("fused_render_backward",
+                 lambda: k2_cuda.backward(g, *bwd_ops),
+                 lambda: twin.render_backward_plain(g, *bwd_ops),
+                 lambda: twin.render_backward_plain(g.double(),
+                                                    *wide_bwd))):
+            outs = kernel()
+            torch.cuda.synchronize()
+            err, rel = 0.0, []
+            for got, want, ref in zip(outs, plain(), exact()):
+                scale = want.abs().max().item()
+                diff = (got - want).abs().max().item()
+                top = ref.abs().max().item()
+                kernel64 = (got.double() - ref).abs().max().item() / top
+                twin64 = (want.double() - ref).abs().max().item() / top
+                rel.append(f"{diff / scale:.2e} (kernel {kernel64:.2e}, "
+                           f"twin {twin64:.2e} of float64)")
+                check(diff <= K2_TOL * scale, f"{name} N={n_epochs}: "
+                      f"max|diff| {diff:.3e} > {K2_TOL * scale:.3e}")
+                err = max(err, diff)
+            errs[name] = max(errs.get(name, 0.0), err)
+            ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 3)
+            (bound_ms, bound_by), (fp32_ms, _), flops = k2_bounds(
+                ops, name.endswith("backward"), True)
+            times[n_epochs][name] = (ms, plain_ms, bound_ms, bound_by)
+            say("18a", f"{name} N={n_epochs} n=64 include_h=True: "
+                f"max|diff| {err:.3e} (/ max|plain| per output: "
+                f"{'; '.join(rel)}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+                f"fp32 bound {fp32_ms:.4f} ms), {bound_ms / ms:.1%} of it; "
+                f"{flops / ms * 1e-9:.2f} TFLOP/s (card {card})")
+        del ops, g, wide, wide_bwd
+        torch.cuda.empty_cache()
+    return times, errs
+
+
+def phase_survey(np, torch, fit_roi, config, make_roi_scene, counters,
+                 roi100, card):
+    """18b, 18c: ROI-1000, the scene of the JAX package's ``bench.py``
+    config 5 (``make_roi_scene(n_epochs=1000, n_pix=64, s=2,
+    n_sources=4)``), through ``fit_roi`` unsharded at the shipped recipe
+    (300 + 2000 iterations, 500 noise samples, the GLS polish) on cuFFT
+    and on matmul: finite outputs, a mean reduced chi2 in [0.9, 1.1], the
+    two renders' chi2 per epoch within 1 % of each other, the same K1 and
+    K2 launches as ROI-100's fit on the same render (``roi100``: backend
+    -> ``counters()``), the wall and the card's peak memory. Returns the
+    launches of both fits, summed."""
+    scene = make_roi_scene(n_epochs=SURVEY_EPOCHS, n_pix=64, s=2,
+                           n_sources=4)
+    outs, total = {}, [0, 0, 0, 0]
+    for backend, phase in (("fft", "18b"), ("matmul", "18c")):
+        counters(reset=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fit_scene(fit_roi, config, scene, "cuda", backend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runs = counters()
+        chi2 = check_fit(np, out)
+        rel = out["fluxes"] / scene["a_true"] - 1
+        pull = (out["fluxes"] - scene["a_true"]) / out["flux_errors"]
+        say(phase, f"ROI-1000 fit_roi {backend} on the card: {wall:.3f} s "
+            f"wall, peak memory {peak / 2**30:.3f} GiB (card {card}); K1 "
+            f"launches forward {runs[0]}, adjoint {runs[1]}; K2 forward "
+            f"{runs[2]}, backward {runs[3]} (with h {runs[4]}, {runs[5]}); "
+            f"mean reduced chi2 {chi2:.4f}; flux vs a_true: median |dmag| "
+            f"{np.median(np.abs(2.5 * np.log10(1 + rel))) * 1e3:.3f} mmag, "
+            f"pull rms {np.sqrt(np.mean(pull**2)):.3f}")
+        check(tuple(runs) == tuple(roi100[backend]), f"ROI-1000 {backend}: "
+              f"launches {runs}, ROI-100's {roi100[backend]} expected")
+        outs[backend] = out
+        total = [t + r for t, r in zip(total, runs[:4])]
+    dchi2 = np.abs(outs["matmul"]["reduced_chi2"]
+                   / outs["fft"]["reduced_chi2"] - 1)
+    dmag = np.abs(2.5 * np.log10(outs["matmul"]["fluxes"]
+                                 / outs["fft"]["fluxes"]))
+    say("18c", f"ROI-1000 matmul vs fft: max |dchi2|/chi2 {dchi2.max():.2e}"
+        f"; |dmag| median {np.median(dmag) * 1e3:.4f} mmag, max "
+        f"{dmag.max() * 1e3:.4f} mmag")
+    check(dchi2.max() <= 0.01, "ROI-1000: the renders' reduced chi2 differ "
+          "by > 1 %")
+    return total
+
+
+def phase_survey_alone():
+    """Phase 18 after only the builds and phases 5 and 5b's fits (for
+    their launches): ``python3 -c "import chip_smoke as c;
+    c.phase_survey_alone()"``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from lightcurver_tpu_torch.core.deconv.model import setup_model
+    from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
+                                           fused_render, fused_render_cuda,
+                                           starlet_cuda)
+    from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
+                                                               fit_roi)
+    from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
+
+    enforce_fp32()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, f"torch {torch.__version__}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(cuda_build.build, (starlet_cuda.SOURCE,
+                                         fused_render_cuda.SOURCE)))
+    counters = launch_counters(starlet_cuda, fused_render_cuda.launches)
+    phase_k2_survey(torch, fused_render_cuda, fused_render, setup_model,
+                    make_roi_scene, card)
+    scene = make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, seed=7)
+    roi100 = {}
+    for backend in ("fft", "matmul"):
+        counters(reset=True)
+        fit_scene(fit_roi, ROI_CONFIG, scene, "cuda", backend)
+        roi100[backend] = counters()
+    phase_survey(np, torch, fit_roi, ROI_CONFIG, make_roi_scene, counters,
+                 roi100, card)
+
+
 def card_vs_cpu(np, fit_roi, config, scene, backend, phase):
     """The same fit on the card and on the CPU, held to 1 mmag and 1 %."""
     t0 = time.perf_counter()
@@ -2917,12 +3353,14 @@ def main():
     card_vs_cpu(np, fit_roi, small_config, small, "matmul", "4b")
 
     scene = make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, seed=7)
+    counters = launch_counters(starlet_cuda, fused_render_cuda.launches)
     torch.cuda.synchronize()
-    starlet_cuda.launches.reset()
+    counters(reset=True)
     t0 = time.perf_counter()
     out = fit_scene(fit_roi, ROI_CONFIG, scene, "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    roi100 = {"fft": counters()}
     n_fwd, n_adj = starlet_cuda.launches.forward, starlet_cuda.launches.adjoint
     chi2 = check_fit(np, out)
     rel = out["fluxes"] / scene["a_true"] - 1
@@ -2946,6 +3384,7 @@ def main():
     out_mm = fit_scene(fit_roi, ROI_CONFIG, scene, "cuda", "matmul")
     torch.cuda.synchronize()
     wall_mm = time.perf_counter() - t0
+    roi100["matmul"] = counters()
     # stage 2 (h free) renders with the background channel, stage 1
     # (h fixed) without; nothing else on the path launches K2
     stage2 = (k2.forward_h, k2.backward_h)
@@ -2990,7 +3429,6 @@ def main():
                      (True, "fft", "9c"), (True, "matmul", "9d"))]
     star_runs = [runs for runs, _, _ in star_fits]
 
-    counters = launch_counters(starlet_cuda, k2)
     work = HERE / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     resumed_runs = [
@@ -3044,16 +3482,29 @@ def main():
         f"forward {captured_run[0]}, adjoint {captured_run[1]}, K2 forward "
         f"{captured_run[2]}, backward {captured_run[3]}; chip_smoke.py so "
         f"far {time.perf_counter() - started:.1f} s")
+    t0 = time.perf_counter()
+    survey_times, survey_errs = phase_k2_survey(
+        torch, fused_render_cuda, fused_render, setup_model, make_roi_scene,
+        card)
+    for name, err in survey_errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           err)
+    survey_run = phase_survey(np, torch, fit_roi, ROI_CONFIG, make_roi_scene,
+                              counters, roi100, card)
+    say(18, f"phase 18 took {time.perf_counter() - t0:.1f} s; launches K1 "
+        f"forward {survey_run[0]}, adjoint {survey_run[1]}, K2 forward "
+        f"{survey_run[2]}, backward {survey_run[3]}; chip_smoke.py so far "
+        f"{time.perf_counter() - started:.1f} s")
     # launches over every run of the main path: ROI-100 and the
     # full-width PSF fit on both renders, the full-width star fits, the
     # checkpointed ROI-100 and star fits with their replayed segments,
     # the PSF and star tasks' pipelined buckets, the pipeline run of
     # phase 13 from stamp_extraction (none where h5py is missing), the
     # sharded fits of phase 14 (both ranks of 14b), the single-star fit of
-    # phase 15a, the helpers' loops of phase 16 with their replays, and
-    # phase 17's fits, captured and eager
+    # phase 15a, the helpers' loops of phase 16 with their replays,
+    # phase 17's fits, captured and eager, and phase 18's ROI-1000 fits
     main_runs = star_runs + resumed_runs + task_runs + [pipeline_run] \
-        + shard_runs + [single_run, helper_run, captured_run]
+        + shard_runs + [single_run, helper_run, captured_run, survey_run]
     n_fwd += n_fwd_mm + sum(f for f, _ in k1_psf) \
         + sum(r[0] for r in main_runs)
     n_adj += n_adj_mm + sum(a for _, a in k1_psf) \
@@ -3097,5 +3548,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
-        sys.exit(shard_rank(int(sys.argv[2]), sys.argv[3]))
+        names = sys.argv[4].split(",") if len(sys.argv) > 4 else SHARD_FITS
+        sys.exit(shard_rank(int(sys.argv[2]), sys.argv[3], names))
     sys.exit(main())

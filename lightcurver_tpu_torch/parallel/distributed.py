@@ -12,17 +12,35 @@ A rank whose host has a CUDA card for each local rank uses the card
 ``cuda:LOCAL_RANK`` and NCCL. Otherwise the ranks talk over gloo: on the
 CPU, or on CUDA tensors when several ranks share one card (NCCL refuses
 two ranks on one device).
+
+The pipeline under ``torchrun`` (``scripts/run.py``) runs each host task
+on rank 0 alone and the three fit tasks on every rank. Three helpers carry
+that rule: :func:`is_writer` (rank 0 alone writes rows and files),
+:func:`broadcast_work` (rank 0's work, sent to every rank) and
+:func:`finish_task` (every rank's outcome of a task, gathered so that every
+rank raises when one failed). The last two talk over a gloo group of their
+own with :data:`CONTROL_TIMEOUT`: a rank waits there while rank 0 runs the
+host tasks, which may take far longer than a fit's collective may wait.
+:func:`rank_buckets` applies the rule to a fit task's buckets.
 """
 
 import logging
 import os
+import pickle
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
 
+from ..structure.exceptions import TaskWasNotSuccessful
+
 # a rank that waits longer than this for a peer fails instead of hanging
 TIMEOUT = timedelta(minutes=10)
+# the wait for rank 0 across a host task (the plate solving of a survey)
+CONTROL_TIMEOUT = timedelta(hours=24)
+
+# (the default group it was made for, the control group)
+_control = (None, None)
 
 
 def _local_ranks(num_processes):
@@ -98,3 +116,128 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                             world_size=world, rank=rank, timeout=TIMEOUT)
     logger.info(f"torch.distributed initialized: rank {rank}/{world}, "
                 f"backend {backend}.")
+
+
+def _world():
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_writer():
+    """True on global rank 0, and in a world of one: the rank that runs the
+    host tasks and writes the pipeline's rows, datasets and products."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _control_group():
+    """The gloo group of :func:`broadcast_work` and :func:`finish_task`,
+    made the first time a world of several ranks needs it (every rank
+    reaches that call at the same point of the pipeline)."""
+    global _control
+    world_group, group = _control
+    if world_group is not dist.group.WORLD:
+        group = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+        _control = (dist.group.WORLD, group)
+    return group
+
+
+class PeerTaskFailed(TaskWasNotSuccessful):
+    """Another rank failed the current task; raised on every rank that
+    learns it, in :func:`broadcast_work` or :func:`finish_task`."""
+
+
+# set on every rank once the current task's failure went through the
+# control group, so that finish_task raises without a second exchange
+_failure_exchanged = False
+
+
+def _exchange(kind, payload):
+    """Every rank's ``(kind, payload)``, gathered on every rank.
+
+    Each control message is one all-gather of a small status, so a rank
+    that failed and reports its status meets the others wherever they
+    wait: one that expects rank 0's work receives the failure instead.
+    Raises ``PeerTaskFailed`` on every rank when a message reports a
+    failure or the ranks were not at the same step (then no rank exchanges
+    again for this task).
+    """
+    global _failure_exchanged
+    messages = [None] * dist.get_world_size()
+    dist.all_gather_object(messages, (kind, payload),
+                           group=_control_group())
+    failed = {rank: text for rank, (k, text) in enumerate(messages)
+              if k == "failed"}
+    out_of_step = {k for k, _ in messages} - {kind, "failed"}
+    if failed or out_of_step:
+        _failure_exchanged = True
+        if kind == "failed":
+            return messages
+        reason = "; ".join(f"rank {r}: {t}" for r, t in failed.items()) \
+            or f"the ranks were at different steps: {sorted(out_of_step)}"
+        raise PeerTaskFailed(f"the task failed elsewhere ({reason})")
+    return messages
+
+
+def broadcast_work(obj):
+    """Rank 0's ``obj`` (a work list, a bucket of jobs), on every rank;
+    ``obj`` itself in a world of one. The other ranks' ``obj`` is ignored.
+    Raises ``PeerTaskFailed`` when a rank reports a failure instead.
+
+    The ranks first exchange a status (rank 0's with the size of its
+    pickled ``obj``), then rank 0's bytes are broadcast once, when every
+    rank reported that it waits for them. ``obj`` is pickled before the
+    exchange, so a failure to pickle it is reported like any other.
+    """
+    if _world() == 1:
+        return obj
+    data = pickle.dumps(obj) if dist.get_rank() == 0 else b""
+    size = _exchange("work", len(data))[0][1]
+    buffer = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+              if dist.get_rank() == 0 else
+              torch.empty(size, dtype=torch.uint8))
+    dist.broadcast(buffer, src=0, group=_control_group())
+    return pickle.loads(buffer.numpy())
+
+
+def rank_buckets(buckets, prepare, store):
+    """The pipeline's rank rule over a fit task's buckets: this rank's
+    ``(buckets, prepare, store)``.
+
+    Rank 0 (and a world of one) keeps its own. Every other rank gets as
+    many placeholders as rank 0 has buckets (their number is broadcast),
+    a ``prepare`` that does nothing, since rank 0's preparation of each
+    bucket reaches it through ``broadcast_work``, and a ``store`` that
+    does nothing, since rank 0 alone writes. So every rank fits the same
+    buckets in the same order, and each fit's collectives meet.
+    """
+    n_buckets = broadcast_work(len(buckets) if is_writer() else None)
+    if is_writer():
+        return buckets, prepare, store
+    return [None] * n_buckets, (lambda bucket: None), (lambda *args: None)
+
+
+def finish_task(name, error=None):
+    """The status collective every rank enters after each pipeline task.
+
+    ``error``: the exception this rank's part of the task raised, or None.
+    Every rank's outcome is gathered (unless a failure of this task was
+    already exchanged, in :func:`broadcast_work`); a rank that failed
+    raises its own exception again, and every other rank raises
+    ``PeerTaskFailed`` with the failed ranks' errors, so that no rank goes
+    on to the next task or is left waiting for a peer. In a world of one
+    it raises ``error`` when there is one, and does nothing else.
+    """
+    global _failure_exchanged
+    if _world() == 1 or _failure_exchanged:
+        _failure_exchanged = False
+        if error is not None:
+            raise error
+        return
+    if error is None:
+        try:
+            _exchange("ok", None)
+        finally:
+            _failure_exchanged = False
+        return
+    _exchange("failed", f"{name}: {type(error).__name__}: {error}")
+    _failure_exchanged = False
+    raise error

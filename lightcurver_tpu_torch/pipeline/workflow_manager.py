@@ -14,6 +14,15 @@ ROI model take both, the ROI file preparation ``device``). The host tasks
 take no argument, as in JAX. A CUDA device on a machine without one is
 refused before any task runs: nothing falls back to the CPU. PyYAML is
 imported by the functions that read YAML, so the module imports without it.
+
+Under ``torchrun`` (a ``torch.distributed`` world of several ranks,
+started by ``scripts/run.py``) the pipeline runs once, as JAX's runs once
+over every chip of its host: the host tasks run on rank 0 alone, and the
+three fit tasks (:data:`FIT_TASKS`) on every rank, where they shard their
+fits over the ranks and rank 0 alone stores the results. After each task
+every rank enters ``parallel.distributed.finish_task``, so a task that
+fails on any rank makes every rank raise. Only rank 0 writes the session
+log file. In a world of one every task runs, as before.
 """
 
 import functools
@@ -25,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.distributed import finish_task, is_writer
 from ..structure.user_config import (get_user_config,
                                      compare_config_with_pipeline_delivered_one)
 from ..structure.database import initialize_database
@@ -48,15 +58,24 @@ from .state_checkers import check_plate_solving
 
 _DAG_PATH = Path(__file__).parent / "pipeline_dependency_graph.yaml"
 
+# the tasks that run on every rank, each sharding its fits over the ranks
+# (the frames, the stars, the ROI's epochs); every other task is host work
+# that runs on rank 0 alone
+FIT_TASKS = ("psf_modeling", "star_photometry", "model_calibrated_cutouts")
+
 
 def setup_base_logger():
-    time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-    log_dir = get_user_config()["workdir"] / "logs"
-    log_dir.mkdir(parents=True, exist_ok=True)
+    """The 'lightcurver' logger, with the session log file on rank 0."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     base_logger = logging.getLogger("lightcurver")
+    base_logger.setLevel(logging.INFO)
+    if not is_writer():
+        return
+    time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    log_dir = get_user_config()["workdir"] / "logs"
+    log_dir.mkdir(parents=True, exist_ok=True)
     # constructing WorkflowManager repeatedly (notebook re-runs) must
     # not stack file handlers — every line would be written to every
     # previously opened session log
@@ -68,7 +87,6 @@ def setup_base_logger():
     handler.setFormatter(logging.Formatter(
         "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
     base_logger.addHandler(handler)
-    base_logger.setLevel(logging.INFO)
 
 
 def _validate_config_keys():
@@ -220,19 +238,29 @@ class WorkflowManager:
                 f"{stop_step!r} in the pipeline order {ordered}; "
                 "nothing would run.")
         for task_name in ordered[start:stop]:
-            task = next((t for t in self.pipe_config["tasks"]
-                         if t["name"] == task_name), None)
-            if task:
-                self.execute_task(task)
-            post_check = self.post_task_attribution.get(task_name)
-            if post_check:
-                success, message = post_check()
-                if not success:
-                    self.logger.error(
-                        f"Post-check failed for {task_name}: {message}")
-                    raise TaskWasNotSuccessful(message)
-                self.logger.info(
-                    f"Post-check OK for {task_name}: {message}")
+            error = None
+            if task_name in FIT_TASKS or is_writer():
+                try:
+                    self.run_task(task_name)
+                except BaseException as exc:
+                    # raised again by finish_task, after every rank knows
+                    error = exc
+            finish_task(task_name, error)
+
+    def run_task(self, task_name):
+        """One task and its post-check, on this rank."""
+        task = next((t for t in self.pipe_config["tasks"]
+                     if t["name"] == task_name), None)
+        if task:
+            self.execute_task(task)
+        post_check = self.post_task_attribution.get(task_name)
+        if post_check:
+            success, message = post_check()
+            if not success:
+                self.logger.error(
+                    f"Post-check failed for {task_name}: {message}")
+                raise TaskWasNotSuccessful(message)
+            self.logger.info(f"Post-check OK for {task_name}: {message}")
 
     def execute_task(self, task):
         self.logger.info(f"Running task {task['name']}.")

@@ -14,6 +14,12 @@ returns unsynchronised tensors, so bucket i + 1's host preparation runs
 while the card fits bucket i. On one CUDA stream the copy of bucket
 i - 1's results to the host is queued behind bucket i's kernels.
 
+Under several ranks (the pipeline under ``torchrun``) rank 0 decides the
+frames that still need a PSF and prepares each bucket; the prepared bucket
+is broadcast to every rank on the main thread, every rank fits it with
+``mesh="auto"`` (the frames sharded over the ranks), and rank 0 alone
+stores the results (:func:`run_pipelined_buckets`).
+
 With ``psf_do_plots`` (the default) each frame's diagnostic plot is
 written to ``plots/PSFs/<footprint hash>/<id>_<frame>.jpg``, as JAX's
 task writes it. h5py, pandas and matplotlib are imported by the functions
@@ -29,6 +35,7 @@ import numpy as np
 
 from ..core.optimize import warn_if_unconverged
 from ..core.params import kwargs_to_numpy
+from ..parallel.distributed import broadcast_work, is_writer, rank_buckets
 from ..structure.database import (execute_sqlite_query, get_pandas,
                                   select_stars_for_a_frame)
 from ..structure.user_config import get_user_config
@@ -224,18 +231,21 @@ def model_all_psfs(*, device="cuda", irfft_backend="fft"):
     logger = logging.getLogger("lightcurver.psf_modelling")
     user_config = get_user_config()
     regions_file = user_config["regions_path"]
-
-    frames = get_pandas(
-        columns=["id", "image_relpath", "exptime", "mjd", "seeing_pixels",
-                 "pixel_scale"],
-        conditions=["plate_solved = 1", "eliminated = 0",
-                    "roi_in_footprint = 1"])
-    combined_footprint_hash = get_combined_footprint_hash(
-        user_config, frames["id"].to_list())
-    logger.info(f"Building PSFs for up to {len(frames)} frames.")
-
     batch_size = int(user_config.get("psf_fit_batch_size", 16) or 16)
-    frame_rows = [frame for _, frame in frames.iterrows()]
+
+    buckets, combined_footprint_hash = [], None
+    if is_writer():
+        frames = get_pandas(
+            columns=["id", "image_relpath", "exptime", "mjd",
+                     "seeing_pixels", "pixel_scale"],
+            conditions=["plate_solved = 1", "eliminated = 0",
+                        "roi_in_footprint = 1"])
+        combined_footprint_hash = get_combined_footprint_hash(
+            user_config, frames["id"].to_list())
+        logger.info(f"Building PSFs for up to {len(frames)} frames.")
+        frame_rows = [frame for _, frame in frames.iterrows()]
+        buckets = [frame_rows[lo:lo + batch_size]
+                   for lo in range(0, len(frame_rows), batch_size)]
 
     def prepare_chunk(rows):
         """Host IO and masking for one bucket of frames."""
@@ -257,8 +267,6 @@ def model_all_psfs(*, device="cuda", irfft_backend="fft"):
             _store_psf_result(user_config, regions_file, job, result,
                               combined_footprint_hash, logger)
 
-    buckets = [frame_rows[lo:lo + batch_size]
-               for lo in range(0, len(frame_rows), batch_size)]
     run_pipelined_buckets(
         buckets, prepare_chunk,
         lambda chunk: _dispatch_fit_jobs(user_config, chunk, device=device,
@@ -273,12 +281,21 @@ def run_pipelined_buckets(buckets, prepare, dispatch, store):
     waiting for it), bucket i + 1's ``prepare`` runs on a worker thread
     and bucket i - 1's results are fetched and stored (``store``).
 
+    Under several ranks this is the pipeline's rank rule
+    (``parallel.distributed.rank_buckets``): ``buckets`` are rank 0's (the
+    other ranks' are ignored), rank 0 alone prepares and stores, and each
+    prepared bucket is broadcast on the main thread before its dispatch
+    (``broadcast_work``), so the worker thread issues no collective and
+    every rank dispatches the same buckets in one order. In a world of
+    one nothing is exchanged.
+
     A finished bucket is never lost to its successor's failure: when
     bucket i + 1's prepare or dispatch raises, bucket i's results are
     stored before the exception propagates, so a rerun resumes after them.
     """
     from concurrent.futures import ThreadPoolExecutor
 
+    buckets, prepare, store = rank_buckets(buckets, prepare, store)
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = pool.submit(prepare, buckets[0]) if buckets else None
         in_flight = None  # (chunk, dispatched output, t0)
@@ -287,6 +304,7 @@ def run_pipelined_buckets(buckets, prepare, dispatch, store):
                 chunk = pending.result()
                 pending = pool.submit(prepare, buckets[i + 1]) \
                     if i + 1 < len(buckets) else None
+                chunk = broadcast_work(chunk)
                 if not chunk:
                     continue
                 dispatched = (chunk, dispatch(chunk), time())

@@ -53,6 +53,7 @@ from ..ops import enforce_fp32
 from ..parallel.batch import CheckpointShare
 from ..parallel.deconv import (epoch_range, pad_epoch_kwargs,
                                pad_epoch_stacks, strip_epoch_kwargs)
+from ..parallel.distributed import is_writer
 from ..parallel.mesh import (EPOCH_AXIS, axis_size, epoch_mesh,
                              resolve_mesh, world_size)
 from ..structure.database import get_pandas
@@ -521,7 +522,9 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
     caller asks for ``"cpu"``; no fallback) and ``irfft_backend``, and
     writes the JAX task's products, named by the footprint hash, beside
     the HDF5. ``deconv_checkpoint_every > 0`` checkpoints stage 2 under
-    ``checkpoints_dir``.
+    ``checkpoints_dir``. Under several ranks every rank reads the HDF5 and
+    fits (its share of the epochs), and rank 0 alone writes the products
+    (:func:`fit_then_write`) and the checkpoints.
     """
     import h5py
 
@@ -614,95 +617,113 @@ def do_modelling_of_roi(*, device="cuda", irfft_backend="fft"):
     checkpoint_every = int(user_config["deconv_checkpoint_every"] or 0)
     checkpoint_path = checkpoint_digest = None
     if checkpoint_every > 0:
-        user_config["checkpoints_dir"].mkdir(exist_ok=True, parents=True)
+        if is_writer():
+            user_config["checkpoints_dir"].mkdir(exist_ok=True, parents=True)
         checkpoint_path = (user_config["checkpoints_dir"]
                            / f"roi_{footprint_hash}_{roi}_stage2.ckpt")
         checkpoint_digest = roi_checkpoint_digest(
             data, noisemap, psf, xs, ys, angles_to_north, config)
 
-    fit = fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
-                  pixel_scales, angles_to_north, config, device=device,
-                  irfft_backend=irfft_backend,
-                  checkpoint_path=checkpoint_path,
-                  checkpoint_every=checkpoint_every or 500,
-                  checkpoint_inputs_digest=checkpoint_digest)
-    scale, model, kwargs = fit["scale"], fit["model"], fit["kwargs"]
+    def write_products(fit):
+        scale, model, kwargs = fit["scale"], fit["model"], fit["kwargs"]
 
-    out_dir = roi_cutouts_file.parent
-    ka = kwargs["kwargs_analytic"]
-    x_pixels = ka["c_x"] + float(ka["dx"][0]) + (im_size_x - 1) / 2.0
-    y_pixels = ka["c_y"] + float(ka["dy"][0]) + (im_size_y - 1) / 2.0
-    ra_post, dec_post = wcs_ref.pixel_to_world(x_pixels, y_pixels)
-    astrometry = {ps: [float(r), float(d)]
-                  for ps, r, d in zip(ordered_ps, np.atleast_1d(ra_post),
-                                      np.atleast_1d(dec_post))}
-    with open(out_dir / f"{footprint_hash}_{roi}_astrometry.json",
-              "w") as ff:
-        json.dump(astrometry, ff)
+        out_dir = roi_cutouts_file.parent
+        ka = kwargs["kwargs_analytic"]
+        x_pixels = ka["c_x"] + float(ka["dx"][0]) + (im_size_x - 1) / 2.0
+        y_pixels = ka["c_y"] + float(ka["dy"][0]) + (im_size_y - 1) / 2.0
+        ra_post, dec_post = wcs_ref.pixel_to_world(x_pixels, y_pixels)
+        astrometry = {ps: [float(r), float(d)]
+                      for ps, r, d in zip(ordered_ps, np.atleast_1d(ra_post),
+                                          np.atleast_1d(dec_post))}
+        with open(out_dir / f"{footprint_hash}_{roi}_astrometry.json",
+                  "w") as ff:
+            json.dump(astrometry, ff)
 
-    per_epoch, per_night = get_fluxes_dataframe_from_model(
-        fit, ordered_ps, norm_errs, frame_ids, mjds, seeings, zeropoint,
-        sky_levels)
-    per_epoch.to_csv(
-        out_dir / f"{footprint_hash}_{roi}_photometry_per_epoch.csv")
-    per_night.to_csv(
-        out_dir / f"{footprint_hash}_{roi}_photometry_per_night.csv")
-    try:
-        from ..plotting.html_visualisation import generate_lightcurve_html
+        per_epoch, per_night = get_fluxes_dataframe_from_model(
+            fit, ordered_ps, norm_errs, frame_ids, mjds, seeings, zeropoint,
+            sky_levels)
+        per_epoch.to_csv(
+            out_dir / f"{footprint_hash}_{roi}_photometry_per_epoch.csv")
+        per_night.to_csv(
+            out_dir / f"{footprint_hash}_{roi}_photometry_per_night.csv")
+        try:
+            from ..plotting.html_visualisation import generate_lightcurve_html
 
-        generate_lightcurve_html(
-            per_night,
-            out_dir / f"{footprint_hash}_{roi}_photometry_per_night.html")
-    except Exception as e:
-        logger.warning(f"HTML light-curve export failed: {e}")
+            generate_lightcurve_html(
+                per_night,
+                out_dir / f"{footprint_hash}_{roi}_photometry_per_night.html")
+        except Exception as e:
+            logger.warning(f"HTML light-curve export failed: {e}")
 
-    # diagnostic stacks, on the scaled data as the fit saw it
-    data_scaled = np.asarray(data, dtype=np.float32) / scale
-    noise_scaled = np.asarray(noisemap, dtype=np.float32) / scale
-    stacks = stack_data_diagnostic(data_scaled, noise_scaled, kwargs, model)
-    ref_header = Header()
-    ref_header.update(wcs_ref.to_header_cards())
-    for stack_type, stacked in stacks.items():
-        write_fits(out_dir / f"{footprint_hash}_{roi}_{stack_type}.fits",
-                   scale * stacked, ref_header)
+        # diagnostic stacks, on the scaled data as the fit saw it
+        data_scaled = np.asarray(data, dtype=np.float32) / scale
+        noise_scaled = np.asarray(noisemap, dtype=np.float32) / scale
+        stacks = stack_data_diagnostic(data_scaled, noise_scaled, kwargs,
+                                       model)
+        ref_header = Header()
+        ref_header.update(wcs_ref.to_header_cards())
+        for stack_type, stacked in stacks.items():
+            write_fits(out_dir / f"{footprint_hash}_{roi}_{stack_type}.fits",
+                       scale * stacked, ref_header)
 
-    with torch.no_grad():
-        high_res, background_only = model.getDeconvolved(
-            kwargs_from_numpy(kwargs, model.device), 0)
-    # exact fine-grid alignment, the (s-1)/2 pool-centre offset included
-    wcs_highres = upsampled_wcs(wcs_ref, subsampling_factor)
-    header_highres = Header()
-    header_highres.update(wcs_highres.to_header_cards())
-    zpt = float(np.atleast_1d(zeropoint)[0])
-    if np.isfinite(zpt):
-        header_highres["ZPT"] = zpt
-    else:
-        # FITS has no NaN card value
-        header_highres["COMMENT"] = "ZPT unavailable (no zeropoint)"
-    write_fits(out_dir / f"{footprint_hash}_{roi}_high_res_model.fits",
-               scale * high_res.cpu().numpy(), header_highres)
-    write_fits(out_dir / f"{footprint_hash}_{roi}_background.fits",
-               scale * background_only.cpu().numpy(), header_highres)
+        with torch.no_grad():
+            high_res, background_only = model.getDeconvolved(
+                kwargs_from_numpy(kwargs, model.device), 0)
+        # exact fine-grid alignment, the (s-1)/2 pool-centre offset included
+        wcs_highres = upsampled_wcs(wcs_ref, subsampling_factor)
+        header_highres = Header()
+        header_highres.update(wcs_highres.to_header_cards())
+        zpt = float(np.atleast_1d(zeropoint)[0])
+        if np.isfinite(zpt):
+            header_highres["ZPT"] = zpt
+        else:
+            # FITS has no NaN card value
+            header_highres["COMMENT"] = "ZPT unavailable (no zeropoint)"
+        write_fits(out_dir / f"{footprint_hash}_{roi}_high_res_model.fits",
+                   scale * high_res.cpu().numpy(), header_highres)
+        write_fits(out_dir / f"{footprint_hash}_{roi}_background.fits",
+                   scale * background_only.cpu().numpy(), header_highres)
 
-    try:
-        from ..plotting.joint_modelling_plotting import \
-            plot_joint_modelling_diagnostic
+        try:
+            from ..plotting.joint_modelling_plotting import \
+                plot_joint_modelling_diagnostic
 
-        plot_dir = (user_config["plots_dir"] / "pixel_modelling"
-                    / str(footprint_hash))
-        plot_dir.mkdir(exist_ok=True, parents=True)
-        time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-        plot_file = plot_dir / f"{time_now}_joint_modelling_roi_{roi}.jpg"
-        plot_joint_modelling_diagnostic(
-            datas=data_scaled, noisemaps=noise_scaled,
-            residuals=fit["residuals"] / scale,
-            chi2_per_frame=np.array(per_epoch["reduced_chi2"]),
-            loss_curve=fit["loss_history_stage2"], save_path=plot_file,
-            starlet_background=background_only.cpu().numpy())
-    except Exception as e:
-        logger.warning(f"ROI modelling plot failed: {e}")
+            plot_dir = (user_config["plots_dir"] / "pixel_modelling"
+                        / str(footprint_hash))
+            plot_dir.mkdir(exist_ok=True, parents=True)
+            time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+            plot_file = (plot_dir
+                         / f"{time_now}_joint_modelling_roi_{roi}.jpg")
+            plot_joint_modelling_diagnostic(
+                datas=data_scaled, noisemaps=noise_scaled,
+                residuals=fit["residuals"] / scale,
+                chi2_per_frame=np.array(per_epoch["reduced_chi2"]),
+                loss_curve=fit["loss_history_stage2"], save_path=plot_file,
+                starlet_background=background_only.cpu().numpy())
+        except Exception as e:
+            logger.warning(f"ROI modelling plot failed: {e}")
 
-    rld = relative_loss_differential(fit["loss_history_stage2"])
-    logger.info("Finished modelling the ROI. Global reduced chi2: "
-                f"{float(np.mean(per_epoch['reduced_chi2'])):.02f} "
-                f"(loss plateau metric {rld:.4f}).")
+        rld = relative_loss_differential(fit["loss_history_stage2"])
+        logger.info("Finished modelling the ROI. Global reduced chi2: "
+                    f"{float(np.mean(per_epoch['reduced_chi2'])):.02f} "
+                    f"(loss plateau metric {rld:.4f}).")
+
+    fit_then_write(
+        lambda: fit_roi(data, noisemap, psf, xs, ys, subsampling_factor,
+                        seeings, pixel_scales, angles_to_north, config,
+                        device=device, irfft_backend=irfft_backend,
+                        checkpoint_path=checkpoint_path,
+                        checkpoint_every=checkpoint_every or 500,
+                        checkpoint_inputs_digest=checkpoint_digest),
+        write_products)
+
+
+def fit_then_write(fit, write):
+    """The ROI task's rank rule: every rank runs ``fit()`` (under several
+    ranks, :func:`fit_roi` over its share of the epochs) and rank 0 alone,
+    or a world of one, passes the result to ``write`` (the products).
+    Returns the fit."""
+    result = fit()
+    if is_writer():
+        write(result)
+    return result

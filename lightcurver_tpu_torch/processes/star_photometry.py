@@ -38,6 +38,7 @@ from ..core.optimize import Optimizer, warn_if_unconverged
 from ..core.params import Params, kwargs_to_numpy
 from ..core.psf.distortion import apply_distortion
 from ..ops import enforce_fp32
+from ..parallel.distributed import is_writer
 from ..structure.database import (execute_sqlite_query, executemany_sqlite,
                                   get_pandas, select_stars,
                                   select_stars_for_a_frame)
@@ -285,14 +286,53 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
     Buckets of stars are fitted by ``fit_stars_batched`` on ``device``,
     the card unless the caller asks for ``"cpu"`` (no fallback),
     rendering with ``irfft_backend`` ("fft" or "matmul", the port's name
-    for JAX's "mxu"). Several buckets without checkpointing are pipelined
-    (:func:`.psf_modelling.run_pipelined_buckets`).
+    for JAX's "mxu"). The buckets go through
+    :func:`.psf_modelling.run_pipelined_buckets` (a checkpointed fit is
+    fetched before the next is dispatched). Under several ranks,
+    rank 0 builds the jobs, every rank fits each bucket with
+    ``mesh="auto"`` and rank 0 alone stores the fluxes (the rank rule of
+    ``run_pipelined_buckets``).
     """
-    import h5py
+    from .psf_modelling import run_pipelined_buckets
 
     logger = logging.getLogger("lightcurver.star_photometry")
     user_config = get_user_config()
     batch_size = _star_batch_size(user_config)
+    footprint_hash, buckets = None, []
+    if is_writer():
+        footprint_hash, jobs = _star_jobs(user_config, logger,
+                                          device=device)
+        batch_size = batch_size or max(len(jobs), 1)
+        buckets = [jobs[lo:lo + batch_size]
+                   for lo in range(0, len(jobs), batch_size)]
+    time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    t0 = time()
+
+    def store_bucket(bucket, out, t0b):
+        results = _collect_star_results(out, bucket)
+        logger.info(f"Collected {len(bucket)} star fits "
+                    f"{time() - t0b:.1f}s after dispatch.")
+        for job, result in zip(bucket, results):
+            _store_star_result(user_config, job, result, footprint_hash,
+                               time_now, logger)
+
+    run_pipelined_buckets(
+        buckets, lambda bucket: bucket,
+        lambda bucket: _dispatch_star_jobs(
+            user_config, bucket, fetch="device", device=device,
+            irfft_backend=irfft_backend),
+        store_bucket)
+    if buckets:
+        logger.info(f"Fitted {sum(map(len, buckets))} stars jointly in "
+                    f"{time() - t0:.1f}s ({len(buckets)} bucket(s)).")
+
+
+def _star_jobs(user_config, logger, *, device="cuda"):
+    """(the footprint hash, the stars' jobs): each star's epochs still to
+    fit, from the database and one read-only open of the regions HDF5
+    (the PSFs warped on ``device``)."""
+    import h5py
+
     frames_ini = get_pandas(
         columns=["id"],
         conditions=["plate_solved = 1", "eliminated = 0",
@@ -305,9 +345,6 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
         stars_to_exclude=user_config["stars_to_exclude_norm"])
     logger.info(f"PSF photometry for {len(stars)} stars.")
     only_fluxless = not user_config["redo_star_photometry"]
-    time_now = datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-
-    # the stars' jobs (host IO), from one read-only open
     jobs = []
     chi2_min, chi2_max = get_chi2_bounds(psf_or_fluxes="psf")
     psf_ref_cache = {}  # frame_id -> the config's psf_ref, for this run
@@ -332,42 +369,7 @@ def do_star_photometry(*, device="cuda", irfft_backend="fft"):
             noisemap[cosmics] *= 1000.0  # cosmics True = bad pixel
             jobs.append({"star": star, "frames": frames, "data": data,
                          "noisemap": noisemap, "psf": psf})
-    if not jobs:
-        return
-
-    t0 = time()
-    batch_size = batch_size or len(jobs)
-    buckets = [jobs[lo:lo + batch_size]
-               for lo in range(0, len(jobs), batch_size)]
-    checkpointing = int(user_config["deconv_checkpoint_every"] or 0) > 0
-
-    def store_bucket(bucket, out, t0b):
-        results = _collect_star_results(out, bucket)
-        logger.info(f"Collected {len(bucket)} star fits "
-                    f"{time() - t0b:.1f}s after dispatch.")
-        for job, result in zip(bucket, results):
-            _store_star_result(user_config, job, result, footprint_hash,
-                               time_now, logger)
-
-    fit = dict(device=device, irfft_backend=irfft_backend)
-    if checkpointing or len(buckets) == 1:
-        # checkpoint segments synchronise anyway, and the core refuses
-        # fetch="device" with a checkpoint path
-        for bucket in buckets:
-            t0b = time()
-            out = _dispatch_star_jobs(user_config, bucket, fetch="numpy",
-                                      **fit)
-            store_bucket(bucket, out, t0b)
-    else:
-        from .psf_modelling import run_pipelined_buckets
-
-        run_pipelined_buckets(
-            buckets, lambda bucket: bucket,
-            lambda bucket: _dispatch_star_jobs(user_config, bucket,
-                                               fetch="device", **fit),
-            store_bucket)
-    logger.info(f"Fitted {len(jobs)} stars jointly in "
-                f"{time() - t0:.1f}s ({len(buckets)} bucket(s)).")
+    return footprint_hash, jobs
 
 
 def _pad_star_jobs(jobs):
@@ -411,7 +413,8 @@ def _dispatch_star_jobs(user_config, jobs, fetch="numpy", *, device="cuda",
     if checkpoint_every > 0:
         import hashlib
 
-        user_config["checkpoints_dir"].mkdir(exist_ok=True, parents=True)
+        if is_writer():
+            user_config["checkpoints_dir"].mkdir(exist_ok=True, parents=True)
         job_key = hashlib.sha256(
             (",".join(str(j["star"]["gaia_id"]) for j in jobs)
              + f":{data.shape}").encode()).hexdigest()[:16]
@@ -436,7 +439,7 @@ def _dispatch_star_jobs(user_config, jobs, fetch="numpy", *, device="cuda",
     out = run_discarding_stale_checkpoint(
         run_batched_fit, checkpoint_path,
         logging.getLogger("lightcurver.star_photometry"))
-    if checkpoint_path is not None:
+    if checkpoint_path is not None and is_writer():
         checkpoint_path.unlink(missing_ok=True)
     return out
 

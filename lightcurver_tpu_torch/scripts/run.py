@@ -8,6 +8,16 @@ Usage:
 ``--device`` (default ``cuda``) and ``--irfft-backend`` (default ``fft``)
 go to the ``WorkflowManager``; without a card, pass ``--device cpu``.
 PyYAML is imported when it runs.
+
+On N cards of one host, the same arguments after
+    torchrun --nproc-per-node N -m lightcurver_tpu_torch.scripts.run
+
+When torchrun's ``WORLD_SIZE`` is above one, the process group is started
+first (``parallel.distributed.initialize_distributed``: NCCL with a card
+per local rank, else gloo) and ``--device cuda`` is the rank's own card.
+The pipeline then runs once: the host tasks on rank 0 alone, the three fit
+tasks sharded over every rank (``pipeline/workflow_manager.py``). A plain
+launch is a world of one.
 """
 
 import argparse
@@ -50,11 +60,20 @@ def run():
     args = parser.parse_args()
 
     os.environ["LIGHTCURVER_CONFIG"] = args.config_file
+    sharded = int(os.environ.get("WORLD_SIZE", 1)) > 1
+    if sharded:
+        from ..parallel.distributed import initialize_distributed
+
+        initialize_distributed()
     from ..pipeline.workflow_manager import WorkflowManager
 
     WorkflowManager(device=args.device,
                     irfft_backend=args.irfft_backend).run(
         start_step=args.start, stop_step=args.stop)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

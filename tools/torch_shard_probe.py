@@ -4,6 +4,8 @@ its comparisons; or its 14b on one rank per card.
 
     python3 tools/torch_shard_probe.py
     python3 tools/torch_shard_probe.py --ranks 4     # on four cards
+    python3 tools/torch_shard_probe.py --ranks 4 --fits roi,psf,stars,star1
+    python3 tools/torch_shard_probe.py --ranks 4 --fits tasks,broadcast
 
 Builds both kernels and measures the rounding floor of ROI-100 (matmul):
 the unsharded fit of the scene and of its data times (1 + 1e-7), max and
@@ -16,9 +18,17 @@ the unsharded fits), with the gates of ``chip_smoke.py``, which print the
 PSF-16 fit's own floor. Each line carries the card's ``nvidia-smi`` name
 and power limit. Needs a CUDA card; about six minutes.
 
-With ``--ranks N`` (N cards, one rank each over NCCL) it runs 14b's four
-fits on N ranks against the unsharded fits on one card, with 14b's
-gates, and nothing else.
+With ``--ranks N`` (N cards, one rank each over NCCL) it runs the fits
+of ``--fits`` on N ranks against the unsharded fits on one card, with
+14b's gates, and nothing else. The default is "roi1000": BASELINE.json's
+config 5, the 1000-epoch ROI of ``chip_smoke.py`` phase 18 at the shipped
+recipe, epoch-sharded (matmul, which the ranks force), against the same
+fit on one card (fluxes within 1 mmag, reduced chi2 within 1 %, the
+ranks bit-equal), with each rank's wall and peak memory and the one-card
+fit's rounding floor (its data x (1 + 1e-7)). 14b's fits are "roi",
+"psf", "stars", "star1" and "tasks" (the fit tasks' device bodies under
+the pipeline's rank rule); "broadcast" times ``broadcast_work`` of a
+config-5 star bucket from rank 0 to every rank.
 """
 
 import argparse
@@ -49,6 +59,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, default=None,
                         help="run 14b alone on this many cards")
+    parser.add_argument("--fits", default="roi1000",
+                        help="with --ranks: the fits to shard, comma "
+                             "separated (default: roi1000)")
     args = parser.parse_args()
 
     import numpy as np
@@ -79,9 +92,12 @@ def main():
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     work = HERE / "build" / "chip_smoke" / "shard"
     if args.ranks is not None:
-        reports, wall = c.run_shard_ranks(work, args.ranks)
-        c.check_shard_ranks(np, torch, counters, work, reports, wall, card)
-        print(f"phase 14b passed on {args.ranks} ranks", flush=True)
+        names = tuple(args.fits.split(","))
+        reports, wall = c.run_shard_ranks(work, args.ranks, names)
+        c.check_shard_ranks(np, torch, counters, work, reports, wall, card,
+                            names)
+        print(f"phase 14b ({', '.join(names)}) passed on {args.ranks} "
+              "ranks", flush=True)
         return 0
 
     fits = {}
