@@ -159,13 +159,20 @@ prints no result:
    (NCCL), then ``fit_roi(..., irfft_backend="matmul",
    mesh=epoch_mesh())`` on phase 5b's ROI-100 scene at the shipped
    recipe, through the sharded loss (the all-reduce of the loss and the
-   gradient, W broadcast from rank 0): fluxes within 1 mmag of phase 5b
-   and reduced chi2 within 1 %, whether they are bit-equal (expected),
-   the wall and the K1 and K2 launches;
+   gradient, W broadcast from rank 0), each loop one replayed CUDA graph
+   with the NCCL all-reduce inside: fluxes, errors, reduced chi2 and W
+   bit-equal to phase 5b's, with 5b's K1 and K2 launches, every loop
+   replayed, and both walls; then, at phase 17's cut budgets, PSF-16
+   (matmul, ``dft_pad`` 16) on a batch mesh and STAR-32 (starlet
+   background, matmul) on a batch mesh and on a (batch, epoch) mesh, each
+   against the same fit unsharded in this process, with the same gates;
 14b. two ranks on the one card: ``python3 chip_smoke.py --shard-rank R
    DIR`` twice, with torchrun's variables, talking over gloo on CUDA
    tensors (NCCL refuses two ranks on one device), each running four
-   fits with ``mesh="auto"``: phase 5's ROI-100 at full width and
+   fits with ``mesh="auto"`` (the ROI's and the one star's loops, whose
+   losses all-reduce over gloo, step eagerly; the PSF's and the 1-D batch
+   star fit's, which hold no collective, replay their graphs; each rank's
+   loops are gated so): phase 5's ROI-100 at full width and
    100 + 1000 iterations (``SHARD_ROI_BUDGET`` says why; 50 epochs a
    rank, matmul), PSF-16 at 100 + 300 iterations (8 frames a rank, matmul
    at ``dft_pad`` 16), the STAR-32 bucket with the starlet background at
@@ -272,9 +279,12 @@ prints no result:
    ``tools/torch_shard_probe.py --ranks 4``.
 
 Every unsharded fit replays its optimizer step as a CUDA graph
-(``core/optimize.py``), so phases 4 to 11, 13 and 15 run captured; the
-sharded fits of phase 14 call their steps eagerly. The wrappers' launch
-counts include the replays (the driver adds what each capture recorded).
+(``core/optimize.py``), so phases 4 to 11, 13 and 15 run captured, and so
+does every fit under a mesh whose loops hold no collective or all-reduce
+over NCCL (14a; ``parallel.distributed.capturable``); those that
+all-reduce over gloo (14b's ROI and one star) call their steps eagerly.
+The wrappers' launch counts include the replays (``StepLoop`` adds what
+each capture recorded).
 
 Then one JSON line on the kernels, each with its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
@@ -1926,10 +1936,14 @@ def shard_fits(np, torch, mesh, counters, names, perturb=None):
     "roi" is ROI-100 (matmul, ``SHARD_ROI_BUDGET``); "psf" PSF-16,
     "psf/R/N" the unsharded fit of the frames rank R of N fits; "stars"
     STAR-32 with the starlet background, "star1" its first star;
-    "roi1000" phase 18's ROI-1000 at the shipped recipe (matmul).
+    "roi1000" phase 18's ROI-1000 at the shipped recipe (matmul). A name
+    ending in "/eager" is that fit with every loop's step called eagerly
+    (``recorded_loops``' ``force_eager``), whatever its group.
     ``perturb`` multiplies the PSF frames and the ROI-1000 data (a
     rounding floor). Each entry is (result, wall, launches, the card's
-    peak memory in bytes)."""
+    peak memory in bytes, each loop's [steps, replays, graphed, ms an
+    iteration after its warm-up and capture])."""
+    from lightcurver_tpu_torch.core import optimize
     from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
     from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
@@ -1978,30 +1992,58 @@ def shard_fits(np, torch, mesh, counters, names, perturb=None):
         if name.startswith("psf/"):
             rank, n_ranks = map(int, name.split("/")[1:])
             runs[name] = lambda r=rank, n=n_ranks: psf(r, n)
+        elif name.endswith("/eager"):
+            runs[name] = runs[name.split("/")[0]]
 
     out = {}
     for name in names:
         run = runs[name]
         counters(reset=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        result = run()
-        torch.cuda.synchronize()
-        out[name] = (result, time.perf_counter() - t0, counters(),
-                     torch.cuda.max_memory_allocated())
+        with recorded_loops(torch, optimize, name.endswith("/eager")) as log:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[name] = (result, wall, counters(),
+                     torch.cuda.max_memory_allocated(), loop_records(log))
     return out
+
+
+def loop_records(log):
+    """``recorded_loops``' log as [steps, replays, graphed, ms an
+    iteration after the warm-up and the capture] per loop."""
+    return [[e["steps"], e["replays"], e["graphed"],
+             1e3 * e["seconds"] / max(e["timed"], 1)] for e in log]
+
+
+# the result arrays of each of shard_fits' fits that the ranks compare
+SHARD_KEYS = {"roi": ("fluxes", "flux_errors", "reduced_chi2", "W"),
+              "roi1000": ("fluxes", "flux_errors", "reduced_chi2", "W"),
+              "psf": ("narrow_psf", "full_psf", "chi2"),
+              "stars": ("fluxes", "fluxes_uncertainties", "chi2"),
+              "star1": ("fluxes", "fluxes_uncertainties", "chi2")}
 
 
 def shard_arrays(np, fits):
     """The arrays of ``shard_fits``' results, flat, for an npz."""
-    keys = {"roi": ("fluxes", "flux_errors", "reduced_chi2", "W"),
-            "roi1000": ("fluxes", "flux_errors", "reduced_chi2", "W"),
-            "psf": ("narrow_psf", "full_psf", "chi2"),
-            "stars": ("fluxes", "fluxes_uncertainties", "chi2"),
-            "star1": ("fluxes", "fluxes_uncertainties", "chi2")}
     return {f"{name}.{key}": np.asarray(fits[name][0][key])
-            for name in fits for key in keys[name.split("/")[0]]}
+            for name in fits for key in SHARD_KEYS[name.split("/")[0]]}
+
+
+def shard_graphed(name, backend):
+    """Whether each loop of 14b's fit ``name`` replays its graph on a rank
+    whose default group is ``backend`` (None: not gated): none of a fit
+    forced eager ("/eager"); under NCCL every loop; under gloo the loops
+    with no collective (the PSF fit's and the star fit's on a 1-D batch
+    mesh) and none whose loss all-reduces (``capturable``)."""
+    if name.endswith("/eager"):
+        return False
+    if backend == "nccl":
+        return True
+    return {"psf": True, "stars": True, "roi": False, "roi1000": False,
+            "star1": False}.get(name.split("/")[0])
 
 
 def shard_tasks(np, torch, counters):
@@ -2142,6 +2184,7 @@ def shard_rank(rank, work, names=SHARD_FITS):
     import torch.distributed as dist
 
     sys.path.insert(0, str(HERE))
+    from lightcurver_tpu_torch.core import optimize
     from lightcurver_tpu_torch.ops import fused_render_cuda, starlet_cuda
     from lightcurver_tpu_torch.parallel.distributed import (
         backend_for, initialize_distributed)
@@ -2159,12 +2202,16 @@ def shard_rank(rank, work, names=SHARD_FITS):
     fits = shard_fits(np, torch, "auto", counters,
                       [n for n in names if n not in SHARD_STEPS])
     arrays = shard_arrays(np, fits)
-    report = {"rank": rank, "walls": {k: v[1] for k, v in fits.items()},
+    report = {"rank": rank, "backend": dist.get_backend(),
+              "walls": {k: v[1] for k, v in fits.items()},
               "launches": {k: v[2] for k, v in fits.items()},
-              "peak_bytes": {k: v[3] for k, v in fits.items()}}
+              "peak_bytes": {k: v[3] for k, v in fits.items()},
+              "loops": {k: v[4] for k, v in fits.items()}}
     if "tasks" in names:
-        task_arrays, stores, launches, walls = shard_tasks(np, torch,
-                                                           counters)
+        with recorded_loops(torch, optimize, False) as log:
+            task_arrays, stores, launches, walls = shard_tasks(np, torch,
+                                                               counters)
+        report["loops"]["tasks"] = loop_records(log)
         arrays.update({"task." + k: v for k, v in task_arrays.items()})
         report["launches"].update(launches)
         report["walls"].update(walls)
@@ -2180,46 +2227,134 @@ def shard_rank(rank, work, names=SHARD_FITS):
     return 0
 
 
-def phase_shard_one(np, torch, fit_roi, scene, ref, counters, card):
-    """14a: ROI-100 through the sharded path at world 1 (NCCL), against
-    phase 5b's fit; returns the launches."""
+def phase_shard_one(np, torch, optimize, fits, scenes, ref, counters,
+                    card):
+    """14a: the fits under a mesh of one rank (NCCL), each loop captured
+    with its all-reduce inside, against the same fits unsharded: ROI-100
+    (matmul, the shipped recipe) on an epoch mesh against phase 5b
+    (``ref``: its result, launches and wall; None: fitted here); PSF-16
+    (matmul, ``dft_pad`` 16) on a batch mesh, and STAR-32 (starlet
+    background, matmul) on a batch mesh and on a (batch, epoch) mesh,
+    against the unsharded fit here at phase 17's cut budgets. Gates: the
+    results bit-equal, the K1 and K2 launches equal, every loop replayed
+    its graph. Returns the launches of the phase's fits."""
     import torch.distributed as dist
+    from lightcurver_tpu_torch.parallel.batch import (batch_epoch_mesh,
+                                                      batch_mesh)
     from lightcurver_tpu_torch.parallel.distributed import \
         initialize_distributed
     from lightcurver_tpu_torch.parallel.mesh import epoch_mesh
     from lightcurver_tpu_torch.processes.roi_modelling import ROI_CONFIG
 
+    fit_roi, build_psf_batched, fit_stars_batched = fits
+    roi, (psf_data, psf_sigma), stars = scenes
+
+    def psf(mesh):
+        return build_psf_batched(psf_data, psf_sigma, 2,
+                                 irfft_backend="matmul", dft_pad=16,
+                                 mesh=mesh, device="cuda",
+                                 **CAPTURED_PSF_BUDGET)
+
+    def star(mesh):
+        return fit_stars_batched(stars["data"], stars["sigma"], stars["psf"],
+                                 stars["s"], n_iter=CAPTURED_STAR_ITERS,
+                                 starlet_global_background=True,
+                                 irfft_backend="matmul", mesh=mesh,
+                                 device="cuda")
+
+    def run(fit, mesh):
+        counters(reset=True)
+        with recorded_loops(torch, optimize, False) as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fit(mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, counters(), wall, log
+
+    star_keys = ("fluxes", "fluxes_uncertainties", "chi2")
+    cells = [
+        ("ROI-100 matmul at the shipped recipe, epoch mesh",
+         lambda mesh: fit_scene(fit_roi, ROI_CONFIG, roi, "cuda", "matmul",
+                                mesh=mesh),
+         epoch_mesh, ("fluxes", "flux_errors", "reduced_chi2", "W"), ref),
+        (f"PSF-16 matmul at {CAPTURED_PSF_BUDGET['n_iter_analytic']} + "
+         f"{CAPTURED_PSF_BUDGET['n_iter_adabelief']}, batch mesh", psf,
+         batch_mesh, ("narrow_psf", "full_psf", "chi2"), None),
+        (f"STAR-32 starlet matmul at {CAPTURED_STAR_ITERS}, batch mesh",
+         star, batch_mesh, star_keys, None),
+        (f"STAR-32 starlet matmul at {CAPTURED_STAR_ITERS}, (batch, epoch) "
+         "mesh", star, lambda: batch_epoch_mesh(1), star_keys, None)]
+    total = [0, 0, 0, 0]
     initialize_distributed(f"localhost:{free_port()}", 1, 0)
     try:
         check(dist.get_backend() == "nccl", f"world 1 on a card: backend "
               f"{dist.get_backend()}, NCCL expected")
-        counters(reset=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fit_scene(fit_roi, ROI_CONFIG, scene, "cuda", "matmul",
-                        mesh=epoch_mesh())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs = counters()
+        for name, fit, make_mesh, keys, given in cells:
+            want = given or run(fit, None)[:3]
+            out, runs, wall, log = run(fit, make_mesh())
+            total = [t + r for t, r in zip(total, runs[:4])]
+            if given is None:
+                total = [t + r for t, r in zip(total, want[1][:4])]
+            replayed = all(entry["graphed"] and entry["replays"] > 0
+                           for entry in log
+                           if entry["steps"] > optimize.N_WARMUP + 1)
+            bits = same_bits(np, out, want[0], keys)
+            say("14a", f"{name}, one NCCL rank, captured: {wall:.3f} s wall "
+                f"against {want[2]:.3f} s unsharded (card {card}); loops "
+                f"{[(e['steps'], e['replays']) for e in log]} (steps, "
+                f"replays), every loop replayed {replayed}; K1 launches "
+                f"forward {runs[0]}, adjoint {runs[1]}; K2 forward {runs[2]}, "
+                f"backward {runs[3]} (with h {runs[4]}, {runs[5]}), "
+                f"unsharded {tuple(want[1])}; bit-equal to the unsharded fit "
+                f"{bits}")
+            check(replayed, f"14a {name}: a loop did not replay its graph")
+            check(bits, f"14a {name}: not the unsharded fit's bits")
+            check(tuple(runs) == tuple(want[1]), f"14a {name}: launches "
+                  f"{tuple(runs)}, the unsharded fit's {tuple(want[1])} "
+                  "expected")
+            if make_mesh is epoch_mesh:
+                check_fit(np, out)
+                check(min(runs[4:6]) >= 2000, "14a: stage 2 did not run "
+                      "through K2 every iteration")
     finally:
         dist.destroy_process_group()
-    check_fit(np, out)
-    dmag = np.abs(2.5 * np.log10(out["fluxes"] / ref["fluxes"]))
-    dchi2 = np.abs(out["reduced_chi2"] / ref["reduced_chi2"] - 1)
-    bits = same_bits(np, out, ref, ("fluxes", "flux_errors", "reduced_chi2",
-                                    "W"))
-    say("14a", f"ROI-100 fit_roi matmul on an epoch mesh of one rank (NCCL, "
-        f"card {card}): {wall:.3f} s wall; K1 launches forward {runs[0]}, "
-        f"adjoint {runs[1]}; K2 forward {runs[2]}, backward {runs[3]} (with "
-        f"h {runs[4]}, {runs[5]}); vs phase 5b: max |dmag| "
-        f"{dmag.max() * 1e3:.4f} mmag, max |dchi2|/chi2 {dchi2.max():.2e}, "
-        f"bit-equal {bits}")
-    check(dmag.max() <= 1e-3, "14a: fluxes differ from phase 5b by > 1 mmag")
-    check(dchi2.max() <= 0.01, "14a: reduced chi2 differs from phase 5b by "
-          "> 1 %")
-    check(min(runs[4:6]) >= 2000, "14a: stage 2 did not run through K2 "
-          "every iteration")
-    return runs[:4]
+    return total
+
+
+def phase_shard_one_alone():
+    """Phase 14a after only the builds, each unsharded fit run here:
+    ``python3 -c "import chip_smoke as c; c.phase_shard_one_alone()"``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
+    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
+    from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
+                                           fused_render_cuda, starlet_cuda)
+    from lightcurver_tpu_torch.processes.roi_modelling import fit_roi
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, star_photometry_scene)
+
+    enforce_fp32()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, f"torch {torch.__version__}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(cuda_build.build, (starlet_cuda.SOURCE,
+                                         fused_render_cuda.SOURCE)))
+    # NCCL bootstraps over this host's loopback: one host, one card
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    return phase_shard_one(
+        np, torch, optimize, (fit_roi, build_psf_batched, fit_stars_batched),
+        (make_roi_scene(n_epochs=100, n_pix=64, s=2, n_sources=4, seed=7),
+         psf_bench_frames(16, 8, 64), star_photometry_scene(32, 100, 24, 2)),
+        None, launch_counters(starlet_cuda, fused_render_cuda.launches),
+        card)
 
 
 def shard_expected(name, rank):
@@ -2292,8 +2427,11 @@ def run_shard_ranks(work, n_ranks=2, names=SHARD_FITS):
 
 def check_shard_ranks(np, torch, counters, work, reports, wall, card,
                       names=SHARD_FITS):
-    """Phase 14b's gates on the ranks' results, stores and launches of
-    ``names``; returns the launches of the ranks' fits, summed."""
+    """Phase 14b's gates on the ranks' results, stores, launches and
+    graphs of ``names``; returns the launches of the ranks' fits, summed.
+    A fit "NAME/eager" is held to NAME's unsharded fit too, and its bits
+    are compared with the ranks' NAME fit when that ran."""
+    from lightcurver_tpu_torch.core.optimize import N_WARMUP
     from lightcurver_tpu_torch.processes.roi_modelling import ROI_CONFIG
 
     n_ranks = len(reports)
@@ -2307,24 +2445,31 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card,
     shares = [f"psf/{r}/{n_ranks}" for r in range(n_ranks)] \
         if "psf" in names else []
     fits = [n for n in names if n not in SHARD_STEPS]
-    refs = shard_fits(np, torch, None, counters, (*fits, *shares))
+    bases = list(dict.fromkeys(n.split("/")[0] for n in fits))
+    refs = shard_fits(np, torch, None, counters, (*bases, *shares))
     ref = shard_arrays(np, refs)
     res = ranks[0]
-    for name in ("roi", "roi1000", "stars", "star1"):
-        if name not in names:
+    for name in fits:
+        base = name.split("/")[0]
+        if base not in ("roi", "roi1000", "stars", "star1"):
             continue
-        flux, chi2 = ("fluxes", "reduced_chi2") if name.startswith("roi") \
+        flux, chi2 = ("fluxes", "reduced_chi2") if base.startswith("roi") \
             else ("fluxes", "chi2")
         dmag = np.abs(2.5 * np.log10(res[f"{name}.{flux}"]
-                                     / ref[f"{name}.{flux}"]))
-        dchi2 = np.abs(res[f"{name}.{chi2}"] / ref[f"{name}.{chi2}"] - 1)
+                                     / ref[f"{base}.{flux}"]))
+        dchi2 = np.abs(res[f"{name}.{chi2}"] / ref[f"{base}.{chi2}"] - 1)
+        same = ""
+        if name != base and base in names:
+            equal = all(np.array_equal(res[f"{name}.{k}"], res[f"{base}.{k}"])
+                        for k in SHARD_KEYS[base])
+            same = f"; bit-equal to the ranks' {base} fit {equal}"
         say("14b", f"{name}: {n_ranks} ranks vs unsharded: max |dmag| "
             f"{dmag.max() * 1e3:.4f} mmag, median "
             f"{np.median(dmag) * 1e3:.4f} mmag, max |dchi2|/chi2 "
             f"{dchi2.max():.2e}; bit-equal "
-            f"{np.array_equal(res[f'{name}.{flux}'], ref[f'{name}.{flux}'])}"
-            f"; the unsharded fit's peak memory "
-            f"{refs[name][3] / 2**30:.3f} GiB (card {card})")
+            f"{np.array_equal(res[f'{name}.{flux}'], ref[f'{base}.{flux}'])}"
+            f"{same}; the unsharded fit's peak memory "
+            f"{refs[base][3] / 2**30:.3f} GiB (card {card})")
         check(dmag.max() <= 1e-3, f"14b {name}: fluxes differ by > 1 mmag")
         check(dchi2.max() <= 0.01, f"14b {name}: chi2 differs by > 1 %")
     if "roi1000" in names:
@@ -2352,9 +2497,10 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card,
         rank = report["rank"]
         for name, runs in report["launches"].items():
             peak = report["peak_bytes"].get(name)
+            base = refs.get(name.split("/")[0])
             say("14b", f"rank {rank} {name}: {report['walls'][name]:.3f} s "
                 f"wall (unsharded "
-                f"{refs[name][1] if name in refs else float('nan'):.3f} s; "
+                f"{base[1] if base else float('nan'):.3f} s; "
                 f"card {card}); K1 launches forward {runs[0]}, adjoint "
                 f"{runs[1]}; K2 forward {runs[2]}, backward {runs[3]}"
                 + ("" if peak is None else
@@ -2364,12 +2510,22 @@ def check_shard_ranks(np, torch, counters, work, reports, wall, card,
                   f"14b rank {rank} {name}: launches {runs[:4]}, {want} "
                   "expected")
             total = [t + r for t, r in zip(total, runs[:4])]
-        for name, config in (("roi", SHARD_ROI_BUDGET),
-                             ("roi1000", ROI_CONFIG),
-                             ("roi task", SHARD_TASK_ROI)):
-            if name not in report["launches"]:
+        for name, loops in report["loops"].items():
+            graphed = shard_graphed(name, report["backend"])
+            say("14b", f"rank {rank} {name} over {report['backend']}: loops "
+                "(steps, replays, graphed, ms an iteration) "
+                f"{[(n, r, g, round(ms, 4)) for n, r, g, ms in loops]}; "
+                f"graphed expected {graphed}")
+            check(graphed is None or all(
+                g == graphed and (r > 0 or not g) for n, r, g, _ in loops
+                if n > N_WARMUP + 1), f"14b rank {rank} {name}: loops "
+                f"{loops}, graphed {graphed} expected")
+        rois = {"roi": SHARD_ROI_BUDGET, "roi1000": ROI_CONFIG,
+                "roi task": SHARD_TASK_ROI}
+        for name, roi in report["launches"].items():
+            config = rois.get(name.split("/")[0])
+            if config is None:
                 continue
-            roi = report["launches"][name]
             n = config["roi_deconv_all_iters"]
             check(roi[4] == roi[5] == n and min(roi[2:4]) > n,
                   f"14b rank {rank} {name}: K2 launches {roi[2:]}: stage 2 "
@@ -2888,8 +3044,9 @@ def recorded_loops(torch, optimize, force_eager):
     launches its capture recorded, whether it ran a graph, the seconds of
     its steps after the first ``N_WARMUP + 1`` (the warm-up and the
     capture; CUDA-synchronised on the host clock) and its state at the
-    end. ``force_eager`` calls every step without a graph, as a fit under
-    a mesh does. Yields the list of the loops' records, in call order."""
+    end. ``force_eager`` calls every step without a graph, as a fit whose
+    loss all-reduces over gloo does. Yields the list of the loops'
+    records, in call order."""
     base = optimize.StepLoop
     log = []
 
@@ -3451,9 +3608,14 @@ def main():
     pipeline_run = phase_pipeline(np, torch, starlet_cuda, k2, card, work)
     # NCCL bootstraps over this host's loopback: one host, one card
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    shard_runs = [phase_shard_one(np, torch, fit_roi, scene, out_mm,
-                                  counters, card),
-                  phase_shard_two(np, torch, counters, work / "shard", card)]
+    t0 = time.perf_counter()
+    shard_runs = [phase_shard_one(
+        np, torch, optimize, (fit_roi, build_psf_batched, fit_stars_batched),
+        (scene, psf_bench_frames(16, 8, 64), stars),
+        (out_mm, roi100["matmul"], wall_mm), counters, card)]
+    say("14a", f"phase 14a took {time.perf_counter() - t0:.1f} s")
+    shard_runs.append(phase_shard_two(np, torch, counters, work / "shard",
+                                      card))
     t0 = time.perf_counter()
     single_run = phase_single_star(np, torch, stars, counters, card)
     phase_optimizer_options(np, torch, stars, card)

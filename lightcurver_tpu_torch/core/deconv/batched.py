@@ -36,7 +36,10 @@ group every rank holds its stars' whole parameters, renders its epochs
 (K2 with ``n_groups`` = its stars), rank 0 of the group adds each star's
 starlet term once, and the per-star losses and the gradient are
 all-reduced over the group. The results are gathered to every rank and
-the padded stars and epochs stripped.
+the padded stars and epochs stripped. On the card the AdaBelief loop
+replays one CUDA graph, its all-reduce inside, unless that group is gloo
+(``parallel.distributed.capturable``); a 1-D batch mesh has no collective
+in the loop.
 """
 
 import numpy as np
@@ -57,6 +60,7 @@ from ...parallel.batch import (BATCH_AXIS, CheckpointShare, auto_fit_mesh,
                                shard_star_fit_arrays, strip_batch,
                                strip_epoch_axis)
 from ...parallel.deconv import PER_EPOCH_KEYS, epoch_range
+from ...parallel.distributed import capturable
 from ...parallel.mesh import EPOCH_AXIS, axis_size, resolve_mesh
 
 # result keys whose leading axis after the star axis is the epoch axis
@@ -431,7 +435,7 @@ def fit_stars_batched(data, noisemap, psf, subsampling_factor,
         free0, lower, upper, int(n_iter), init_learning_rate=float(lr),
         schedule_learning_rate=True, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, inputs_digest=digest,
-        checkpoint_share=share, eager=mesh is not None)
+        checkpoint_share=share, eager=not capturable(group))
     with torch.no_grad():
         out = _finalize_stars(model, best, history, consts, scale)
     if mesh is not None:

@@ -46,9 +46,14 @@ What breaks a capture is a host round trip inside the step's loss: a read
 back (``.item()``, ``float(t)``, ``if t:``, ``.tolist()``, ``nonzero``, a
 boolean mask index), a copy from the host (``torch.tensor`` of data, an
 index made from a Python list), or a branch on a Python number that
-changes between iterations. Fits under a mesh (``parallel/``), whose
-losses all-reduce through ``sum_over_group``, run eagerly: their callers
-pass ``eager=mesh is not None``.
+changes between iterations. A fit under a mesh (``parallel/``) whose
+loss all-reduces through ``sum_over_group`` is captured the same way when
+its process group is NCCL: the all-reduce is one more kernel of the graph,
+and the warm-up steps issue every collective of the step first, so each
+communicator exists before the capture. Under gloo, which all-reduces
+through the host, its steps are called eagerly. One rule decides,
+``parallel.distributed.capturable``: its callers pass ``eager=not
+capturable(group)``.
 
 AdaBelief is one step for the single and the frame-batched fits:
 :func:`run_adabelief_extended` (JAX's ``adabelief_scan_extended``), whose
@@ -93,6 +98,7 @@ import torch
 
 from .params import kwargs_to_numpy
 from ..ops import fused_render_cuda, starlet_cuda
+from ..parallel.distributed import capturable
 
 UNCONVERGED_RLD_THRESHOLD = 0.02
 
@@ -140,16 +146,18 @@ class StepLoop:
     docstring): calls on the CPU or with ``eager``, else warm-up calls, one
     capture and replays of a CUDA graph.
 
-    ``replays`` counts the graph's replays (the capture's own run
-    included) and ``recorded`` holds the K1 and K2 launches the capture
-    recorded (K1 forward, adjoint, K2 forward, backward, forward with h,
-    backward with h), None before a capture.
+    ``eager`` is the keyword it was made with; ``replays`` counts the
+    graph's replays (the capture's own run included) and ``recorded``
+    holds the K1 and K2 launches the capture recorded (K1 forward,
+    adjoint, K2 forward, backward, forward with h, backward with h), None
+    before a capture.
     """
 
     def __init__(self, step, state, *, eager=False):
         self.step = step
         self.state = tuple(state)
         self.device = self.state[0].device
+        self.eager = bool(eager)
         self.graphed = self.device.type == "cuda" and not eager
         self.warm = 0
         self.graph = None
@@ -339,7 +347,8 @@ def run_adabelief(loss_fn, free0, lower, upper, n_iter,
                   init_learning_rate=1e-3, schedule_learning_rate=True, *,
                   eager=False):
     """Projected AdaBelief. ``eager``: call the step on the card too,
-    without a graph (the fits under a mesh).
+    without a graph (a loss that all-reduces over gloo,
+    ``parallel.distributed.capturable``).
 
     Returns:
         (best_free, final_free, loss_history) with loss_history a numpy
@@ -1044,10 +1053,10 @@ class Optimizer:
         ``param_history`` (the free tree of numpy arrays with a leading
         snapshot axis) and ``param_history_iterations``. The options
         raise ``ValueError`` with L-BFGS or with a checkpoint.
-        A loss that all-reduces over a process group (a fit under a
-        mesh) runs its steps eagerly (``eager`` of the loops); any other
-        replays a CUDA graph on the card. ``progress_bar`` is accepted
-        and unused.
+        On the card the steps replay a CUDA graph, unless the loss
+        all-reduces over a gloo group (``parallel.distributed.capturable``
+        of the loss's ``group``): then they are called eagerly (``eager``
+        of the loops). ``progress_bar`` is accepted and unused.
         """
         del progress_bar
         t0 = time.time()
@@ -1062,7 +1071,7 @@ class Optimizer:
                 "stop_at_loss_increase / return_param_history are only "
                 "implemented for method='adabelief'")
         extra = {}
-        eager = getattr(self.loss, "group", None) is not None
+        eager = not capturable(getattr(self.loss, "group", None))
         if self.method == "adabelief":
             best, _, hist, stopped_at, snaps, snap_iters = \
                 run_adabelief_extended(

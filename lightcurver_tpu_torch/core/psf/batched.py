@@ -14,7 +14,10 @@ per phase-2 loss evaluation (``ops.starlet_op``).
 Under several ranks (``parallel/``) the frames are padded and split over
 a ``batch`` mesh: each rank fits its frames alone, K1 at the local batch
 (so the wrapper's cluster size may differ from the unsharded fit's), and
-the results are all-gathered to every rank and stripped.
+the results are all-gathered to every rank and stripped. No collective
+runs inside the optimizer loops (``parallel.distributed.capturable`` of
+no group), so on the card they replay their CUDA graphs under any mesh,
+as unsharded.
 """
 
 import numpy as np
@@ -62,9 +65,8 @@ def _subset(tree, like):
 
 def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
                 field_distortion, n_iter_analytic, n_iter_adabelief,
-                regularization_strength, adabelief_lr, dft_mats, eager):
-    """The two-phase fit of F frames; tensors in, tensors out. ``eager``:
-    the optimizers' steps without a CUDA graph (under a mesh)."""
+                regularization_strength, adabelief_lr, dft_mats):
+    """The two-phase fit of F frames; tensors in, tensors out."""
     n_frames, n_stars = data.shape[:2]
     device = data.device
     model, loss_moffat, loss_pixels = phase_losses(
@@ -105,8 +107,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
         "kwargs_distortion": distortion0}}
     best1, _, hist1 = run_lbfgsb_batched(
         lambda free: loss_moffat(free, consts1), free1,
-        _subset(lower, free1), _subset(upper, free1), n_iter_analytic,
-        eager=eager)
+        _subset(lower, free1), _subset(upper, free1), n_iter_analytic)
 
     # ---- phase 2: pixel grid (+ distortion), Moffat fixed ---------------
     free2 = {"kwargs_gaussian": best1["kwargs_gaussian"],
@@ -140,8 +141,7 @@ def _fit_frames(data, noisemap, masks, stamp_coords, fwhm0, n_pix, s,
     best2, _, hist2 = run_adabelief_batched(
         lambda free: loss_pixels(free, consts2), free2,
         _subset(lower, free2), _subset(upper, free2), n_iter_adabelief,
-        init_learning_rate=adabelief_lr, schedule_learning_rate=True,
-        eager=eager)
+        init_learning_rate=adabelief_lr, schedule_learning_rate=True)
 
     kwargs_final = {**fixed2, **best2}
     with torch.no_grad():
@@ -252,8 +252,7 @@ def build_psf_batched(images, noisemaps, subsampling_factor, masks=None,
         on(guess_fwhm_pixels), int(n_pix), s, bool(field_distortion),
         int(n_iter_analytic), int(n_iter_adabelief),
         float(regularization_strength), float(adabelief_lr),
-        psf_dft_mats(int(n_pix) * s, s, irfft_backend, dft_pad, device),
-        mesh is not None)
+        psf_dft_mats(int(n_pix) * s, s, irfft_backend, dft_pad, device))
     if mesh is not None:
         out = strip_batch(gather_to_host(mesh, out), n_pad)
     if fetch == "device":

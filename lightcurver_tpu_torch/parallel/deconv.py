@@ -231,6 +231,7 @@ def fit_deconv_sharded(data, sigma_2, psf, xs, ys, subsampling_factor, mesh,
     from ..core.optimize import run_adabelief
     from ..core.params import Params, kwargs_from_numpy, kwargs_to_numpy
     from ..ops import enforce_fp32
+    from .distributed import capturable
 
     enforce_fp32()
     n_real = data.shape[0]
@@ -262,10 +263,12 @@ def fit_deconv_sharded(data, sigma_2, psf, xs, ys, subsampling_factor, mesh,
     loss = Loss(data_p, model_p, params, sigma_2_p, epoch_weights=epoch_w,
                 epochs=epoch_range(mesh, data_p.shape[0]),
                 group=mesh.get_group(EPOCH_AXIS), **loss_kwargs)
-    # the loss all-reduces over the mesh: the step runs eagerly
+    # the loss all-reduces over the mesh: one CUDA graph with the
+    # all-reduce inside under NCCL, eager steps under gloo
     best, _, history = run_adabelief(
         loss.loss_fn, params.free0, params.lower, params.upper, n_iter,
-        init_learning_rate=init_learning_rate, eager=True)
+        init_learning_rate=init_learning_rate,
+        eager=not capturable(loss.group))
     params.set_best(best)
     kwargs_best = strip_epoch_kwargs(
         kwargs_to_numpy(params.best_fit_values(as_kwargs=True)),

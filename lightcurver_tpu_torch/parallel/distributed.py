@@ -22,6 +22,10 @@ rank raises when one failed). The last two talk over a gloo group of their
 own with :data:`CONTROL_TIMEOUT`: a rank waits there while rank 0 runs the
 host tasks, which may take far longer than a fit's collective may wait.
 :func:`rank_buckets` applies the rule to a fit task's buckets.
+
+:func:`capturable` decides whether a fit's optimizer loop under a mesh is
+one replayed CUDA graph (NCCL, or no collective in the loop) or calls its
+step eagerly (gloo).
 """
 
 import logging
@@ -116,6 +120,17 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                             world_size=world, rank=rank, timeout=TIMEOUT)
     logger.info(f"torch.distributed initialized: rank {rank}/{world}, "
                 f"backend {backend}.")
+
+
+def capturable(group=None):
+    """Whether an optimizer loop whose loss all-reduces over ``group``
+    (None: a loop with no collective) may replay its step as a CUDA graph
+    on the card (``core/optimize.py``): with no group, or over NCCL, whose
+    collectives a graph captures with the rest of the step. Gloo
+    all-reduces through the host, which a capture refuses, so its loops
+    call their step eagerly. The one rule every fit under a mesh follows;
+    on the CPU no loop is captured whatever it says."""
+    return group is None or dist.get_backend(group) == "nccl"
 
 
 def _world():

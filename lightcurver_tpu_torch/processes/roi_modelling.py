@@ -158,10 +158,11 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
             broadcast; the GLS polish, errors and chi2 run on the full
             tree on every rank, which all return the same result. Under
             a mesh with ``checkpoint_path``, rank 0 writes and every rank
-            reads the one file. Under a mesh the stages' optimizer steps
-            run eagerly (the loss all-reduces); unsharded on the card,
-            each stage replays its step as a CUDA graph
-            (``core/optimize.py``).
+            reads the one file. On the card each stage replays its
+            optimizer step as a CUDA graph (``core/optimize.py``),
+            unsharded or under a mesh over NCCL, whose all-reduce the
+            graph holds; under gloo, which all-reduces through the host,
+            the steps run eagerly (``parallel.distributed.capturable``).
 
     Returns:
         dict with

@@ -6,35 +6,52 @@ its comparisons; or its 14b on one rank per card.
     python3 tools/torch_shard_probe.py --ranks 4     # on four cards
     python3 tools/torch_shard_probe.py --ranks 4 --fits roi,psf,stars,star1
     python3 tools/torch_shard_probe.py --ranks 4 --fits tasks,broadcast
+    python3 tools/torch_shard_probe.py --breakdown   # one card
 
 Builds both kernels and measures the rounding floor of ROI-100 (matmul):
 the unsharded fit of the scene and of its data times (1 + 1e-7), max and
 median |dmag|, at phase 5's noise (0.3) and at 0.03, at the shipped
 recipe, at 14b's budget (100 + 1000 iterations) and at 50 + 300; then,
 at 14b's noise and budget, the same over ``ULP_SEEDS`` changes of the
-data that move each pixel one ulp up or down at random. Then runs 14a (the sharded path at world 1 over NCCL, against phase 5b's
-fit) and 14b (two ranks on the card over gloo, ``mesh="auto"``, against
-the unsharded fits), with the gates of ``chip_smoke.py``, which print the
-PSF-16 fit's own floor. Each line carries the card's ``nvidia-smi`` name
-and power limit. Needs a CUDA card; about six minutes.
+data that move each pixel one ulp up or down at random. Then runs 14a
+(the fits under a mesh at world 1 over NCCL, captured, against the
+unsharded fits to the bit) and 14b (two ranks on the card over gloo,
+``mesh="auto"``, against the unsharded fits), with the gates of
+``chip_smoke.py``, which print the PSF-16 fit's own floor. Each line
+carries the card's ``nvidia-smi`` name and power limit. Needs a CUDA
+card; about six minutes.
 
 With ``--ranks N`` (N cards, one rank each over NCCL) it runs the fits
 of ``--fits`` on N ranks against the unsharded fits on one card, with
-14b's gates, and nothing else. The default is "roi1000": BASELINE.json's
-config 5, the 1000-epoch ROI of ``chip_smoke.py`` phase 18 at the shipped
-recipe, epoch-sharded (matmul, which the ranks force), against the same
-fit on one card (fluxes within 1 mmag, reduced chi2 within 1 %, the
-ranks bit-equal), with each rank's wall and peak memory and the one-card
-fit's rounding floor (its data x (1 + 1e-7)). 14b's fits are "roi",
-"psf", "stars", "star1" and "tasks" (the fit tasks' device bodies under
-the pipeline's rank rule); "broadcast" times ``broadcast_work`` of a
-config-5 star bucket from rank 0 to every rank.
+14b's gates, and nothing else. Every loop of a fit under NCCL replays one
+CUDA graph with its all-reduce inside; a name ending in "/eager" runs that
+fit with every step called eagerly, and is compared with it to the bit.
+The default, ``DEFAULT_FITS``, is "roi1000/eager", "roi1000", "psf",
+"stars" and "tasks". "roi1000" is BASELINE.json's config 5, the
+1000-epoch ROI of ``chip_smoke.py`` phase 18 at the shipped recipe,
+epoch-sharded (matmul, which the ranks force), against the same fit on
+one card (fluxes within 1 mmag, reduced chi2 within 1 %, the ranks
+bit-equal), with each rank's wall and peak memory and the one-card fit's
+rounding floor (its data x (1 + 1e-7)); the eager run goes first, so it
+pays the process's first-fit costs (the mesh's import, the communicators)
+and the captured run is timed warm. 14b's
+fits are "roi", "psf", "stars", "star1" and "tasks" (the fit tasks'
+device bodies under the pipeline's rank rule); "broadcast" times
+``broadcast_work`` of a config-5 star bucket from rank 0 to every rank.
+
+With ``--breakdown`` (one card) it fits ROI-1000 (matmul) at world 1 over
+NCCL unsharded and on an epoch mesh, in turns (unsharded, mesh, mesh,
+unsharded), and splits each wall on the host clock, synchronised at each
+edge: ``setup_model``, each stage's ``Optimizer.minimize`` (its loops'
+replays apart from its warm-up, capture and set-up), ``propagate_noise``,
+``linear_flux_solve``, and the rest of ``fit_roi``.
 """
 
 import argparse
 import os
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -45,6 +62,7 @@ BUDGETS = {"the shipped recipe": {},
            "50 + 300 iterations": dict(roi_deconv_translations_iters=50,
                                        roi_deconv_all_iters=300)}
 ULP_SEEDS = (1, 2, 3, 4)
+DEFAULT_FITS = "roi1000/eager,roi1000,psf,stars,tasks"
 
 
 def one_ulp(np, data, seed):
@@ -55,13 +73,78 @@ def one_ulp(np, data, seed):
     return np.nextafter(data, toward.astype(data.dtype))
 
 
+def breakdown(np, torch, c, card):
+    """``--breakdown``: ROI-1000 at world 1, unsharded and on an epoch
+    mesh, each wall split by the functions ``fit_roi`` calls."""
+    from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.parallel.distributed import \
+        initialize_distributed
+    from lightcurver_tpu_torch.parallel.mesh import epoch_mesh
+    from lightcurver_tpu_torch.processes import roi_modelling as rm
+    from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
+
+    import torch.distributed as dist
+
+    spans = []
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spans.append((name, time.perf_counter() - t0))
+
+        setattr(owner, name, wrapped)
+        return owner, name, fn
+
+    scene = make_roi_scene(n_epochs=c.SURVEY_EPOCHS, n_pix=64, s=2,
+                           n_sources=4)
+    patched = [timed(rm, "setup_model"), timed(rm, "propagate_noise"),
+               timed(rm, "linear_flux_solve"),
+               timed(optimize.Optimizer, "minimize")]
+    initialize_distributed(f"localhost:{c.free_port()}", 1, 0)
+    try:
+        mesh = epoch_mesh()
+        for label, m in (("unsharded", None), ("epoch mesh", mesh),
+                         ("epoch mesh", mesh), ("unsharded", None)):
+            spans.clear()
+            with c.recorded_loops(torch, optimize, False) as log:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                c.fit_scene(rm.fit_roi, rm.ROI_CONFIG, scene, "cuda",
+                            "matmul", mesh=m)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            replays = [e["seconds"] for e in log]
+            parts = ", ".join(f"{name} {t:.3f}" for name, t in spans)
+            print(f"breakdown, ROI-1000 matmul, world 1 (NCCL), {label}: "
+                  f"{wall:.3f} s wall; {parts} s; the loops' replays "
+                  f"after warm-up and capture "
+                  f"{', '.join(f'{t:.3f}' for t in replays)} s; the rest "
+                  f"{wall - sum(t for _, t in spans):.3f} s (card {card})",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+        for owner, name, fn in patched:
+            setattr(owner, name, fn)
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, default=None,
                         help="run 14b alone on this many cards")
-    parser.add_argument("--fits", default="roi1000",
+    parser.add_argument("--breakdown", action="store_true",
+                        help="split ROI-1000's wall at world 1, unsharded "
+                             "and on an epoch mesh, and nothing else")
+    parser.add_argument("--fits", default=DEFAULT_FITS,
                         help="with --ranks: the fits to shard, comma "
-                             "separated (default: roi1000)")
+                             f"separated (default: {DEFAULT_FITS})")
     args = parser.parse_args()
 
     import numpy as np
@@ -72,11 +155,15 @@ def main():
         return 1
     sys.path.insert(0, str(HERE))
     import chip_smoke as c
+    from lightcurver_tpu_torch.core import optimize
+    from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
+    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
     from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
                                            fused_render_cuda, starlet_cuda)
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
                                                                fit_roi)
-    from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
+    from lightcurver_tpu_torch.utilities.synthetic import (
+        make_roi_scene, psf_bench_frames, star_photometry_scene)
 
     enforce_fp32()
     card = subprocess.run(
@@ -90,6 +177,8 @@ def main():
     counters = c.launch_counters(starlet_cuda, fused_render_cuda.launches)
     # NCCL bootstraps over this host's loopback: one host
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    if args.breakdown:
+        return breakdown(np, torch, c, card)
     work = HERE / "build" / "chip_smoke" / "shard"
     if args.ranks is not None:
         names = tuple(args.fits.split(","))
@@ -134,8 +223,11 @@ def main():
     print(f"rounding floor over {len(ULP_SEEDS)} one-ulp changes: max |dmag| "
           f"{worst * 1e3:.4f} mmag, median of the medians "
           f"{np.median(medians) * 1e3:.4f} mmag (card {card})", flush=True)
-    c.phase_shard_one(np, torch, fit_roi, scene,
-                      fits[0.3, "the shipped recipe"], counters, card)
+    c.phase_shard_one(np, torch, optimize,
+                      (fit_roi, build_psf_batched, fit_stars_batched),
+                      (scene, psf_bench_frames(16, 8, 64),
+                       star_photometry_scene(32, 100, 24, 2)),
+                      None, counters, card)
     c.phase_shard_two(np, torch, counters, work, card)
     print("phase 14 passed", flush=True)
     return 0
