@@ -1,0 +1,10 @@
+"""Seconds per fit that its optimizer loops spend in their eager warm-up
+steps and their graph captures (``optimizer.warmup`` and
+``optimizer.capture`` spans inside the window's ``roi.fit`` spans)."""
+
+from benchmark.spans import per_unit, program_spans
+
+
+def read(summary, shapes):
+    return per_unit(program_spans(), "roi.fit",
+                    {"optimizer.warmup", "optimizer.capture"})

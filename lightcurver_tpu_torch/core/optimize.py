@@ -99,6 +99,7 @@ import torch
 from .params import kwargs_to_numpy
 from ..ops import fused_render_cuda, starlet_cuda
 from ..parallel.distributed import capturable
+from ..utilities.tracing import span
 
 UNCONVERGED_RLD_THRESHOLD = 0.02
 
@@ -176,12 +177,13 @@ class StepLoop:
             return self.state
         if self.graph is None and n > 0 and self.warm < N_WARMUP:
             warm = min(n, N_WARMUP - self.warm)
-            current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self._call(warm)
-            current.wait_stream(side)
+            with span("optimizer.warmup", steps=warm):
+                current = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    self._call(warm)
+                current.wait_stream(side)
             self.warm += warm
             n -= warm
         if self.graph is None and n > 0:
@@ -196,13 +198,22 @@ class StepLoop:
 
     def _capture(self):
         """Capture one step into a graph and run it once (its launches
-        were counted by the wrappers as the capture recorded them)."""
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(graph):
-            _copy_into(self.state, self.step(self.state))
-        self.recorded = tuple(b - a for a, b in zip(before,
-                                                    _launch_counts()))
+        were counted by the wrappers as the capture recorded them).
+
+        ``torch.cuda.graph`` synchronises the device when it is entered;
+        the explicit synchronise before it waits for the same work, so
+        the drain span holds the wait for work queued earlier (the
+        previous loop, fit or bucket) and the capture span the capture."""
+        with span("optimizer.drain"):
+            torch.cuda.synchronize(self.device)
+        with span("optimizer.capture") as attrs:
+            graph = torch.cuda.CUDAGraph()
+            before = _launch_counts()
+            with torch.cuda.graph(graph):
+                _copy_into(self.state, self.step(self.state))
+            self.recorded = tuple(b - a for a, b in zip(before,
+                                                        _launch_counts()))
+            attrs["recorded"] = self.recorded
         self.graph = graph
         graph.replay()
         self.replays += 1

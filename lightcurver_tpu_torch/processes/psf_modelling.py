@@ -41,6 +41,7 @@ from ..structure.database import (execute_sqlite_query, get_pandas,
 from ..structure.user_config import get_user_config
 from ..utilities.footprint import get_combined_footprint_hash
 from ..utilities.image_coordinates import rescale_image_coordinates
+from ..utilities.tracing import span
 from .star_extraction import _segment
 
 
@@ -184,13 +185,14 @@ def _dispatch_fit_jobs(user_config, jobs, fetch="device", *, device="cuda",
     """
     from ..core.psf.batched import build_psf_batched
 
-    return build_psf_batched(
-        subsampling_factor=user_config["subsampling_factor"],
-        n_iter_analytic=user_config["psf_n_iter_analytic"],
-        n_iter_adabelief=user_config["psf_n_iter_pixels"],
-        field_distortion=user_config["field_distortion"], fetch=fetch,
-        dft_pad=user_config.get("psf_dft_pad"), device=device,
-        irfft_backend=irfft_backend, **_pad_fit_jobs(jobs))
+    with span("psf.dispatch", frames=len(jobs)):
+        return build_psf_batched(
+            subsampling_factor=user_config["subsampling_factor"],
+            n_iter_analytic=user_config["psf_n_iter_analytic"],
+            n_iter_adabelief=user_config["psf_n_iter_pixels"],
+            field_distortion=user_config["field_distortion"], fetch=fetch,
+            dft_pad=user_config.get("psf_dft_pad"), device=device,
+            irfft_backend=irfft_backend, **_pad_fit_jobs(jobs))
 
 
 def _collect_fit_results(out, jobs):
@@ -301,7 +303,8 @@ def run_pipelined_buckets(buckets, prepare, dispatch, store):
         in_flight = None  # (chunk, dispatched output, t0)
         for i in range(len(buckets)):
             try:
-                chunk = pending.result()
+                with span("pipeline.wait_prepare", bucket=i):
+                    chunk = pending.result()
                 pending = pool.submit(prepare, buckets[i + 1]) \
                     if i + 1 < len(buckets) else None
                 chunk = broadcast_work(chunk)

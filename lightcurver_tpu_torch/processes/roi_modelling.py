@@ -62,6 +62,7 @@ from ..utilities.checkpoints import run_discarding_stale_checkpoint
 from ..utilities.footprint import get_combined_footprint_hash
 from ..utilities.lightcurves_postprocessing import (
     convert_flux_to_magnitude, group_observations)
+from ..utilities.tracing import span
 
 # The ROI section of the shipped config
 # (lightcurver_tpu/pipeline/example_config_file/config.yaml).
@@ -174,192 +175,200 @@ def fit_roi(data, noisemap, psf, xs, ys, subsampling_factor, seeings,
         renders them, ``scale``, ``W`` and the loss histories
         ``loss_history_stage1`` / ``loss_history_stage2``.
     """
-    enforce_fp32()
-    logger = logging.getLogger("lightcurver.roi_modelling")
-    data = np.array(data, dtype=np.float32)
-    noisemap = np.array(noisemap, dtype=np.float32)
-    scale = float(np.nanmax(data))
-    if not np.isfinite(scale) or scale <= 0:
-        # an all-NaN or non-positive stack: dividing would NaN or
-        # sign-flip everything
-        scale = 1.0
-    data /= scale
-    noisemap /= scale
-    s = int(subsampling_factor)
-    n_epochs, im_size_y, im_size_x = data.shape
-    xs = np.asarray(xs, dtype=np.float64)
-    ys = np.asarray(ys, dtype=np.float64)
+    with span("roi.fit", epochs=len(data)):
+        enforce_fp32()
+        logger = logging.getLogger("lightcurver.roi_modelling")
+        data = np.array(data, dtype=np.float32)
+        noisemap = np.array(noisemap, dtype=np.float32)
+        scale = float(np.nanmax(data))
+        if not np.isfinite(scale) or scale <= 0:
+            # an all-NaN or non-positive stack: dividing would NaN or
+            # sign-flip everything
+            scale = 1.0
+        data /= scale
+        noisemap /= scale
+        s = int(subsampling_factor)
+        n_epochs, im_size_y, im_size_x = data.shape
+        xs = np.asarray(xs, dtype=np.float64)
+        ys = np.asarray(ys, dtype=np.float64)
 
-    # flux initial guess: aperture sums on the median stack; NaN or
-    # non-positive seeings (unknown) are left out of the mean
-    pixel_scale = float(np.nanmedian(pixel_scale))
-    stack = np.nanmedian(data, axis=0)
-    good_seeing = np.asarray(seeings, dtype=float)
-    good_seeing = good_seeing[np.isfinite(good_seeing) & (good_seeing > 0)]
-    mean_seeing = float(good_seeing.mean()) if good_seeing.size \
-        else 3.0 * pixel_scale
-    radius = 0.66 * mean_seeing / pixel_scale
-    aperture_fluxes = circular_aperture_photometry(
-        stack, list(zip(xs, ys)), radius)
+        # flux initial guess: aperture sums on the median stack; NaN or
+        # non-positive seeings (unknown) are left out of the mean
+        pixel_scale = float(np.nanmedian(pixel_scale))
+        stack = np.nanmedian(data, axis=0)
+        good_seeing = np.asarray(seeings, dtype=float)
+        good_seeing = good_seeing[np.isfinite(good_seeing) & (good_seeing > 0)]
+        mean_seeing = float(good_seeing.mean()) if good_seeing.size \
+            else 3.0 * pixel_scale
+        radius = 0.66 * mean_seeing / pixel_scale
+        aperture_fluxes = circular_aperture_photometry(
+            stack, list(zip(xs, ys)), radius)
 
-    offset_x = (im_size_x - 1) / 2.0
-    offset_y = (im_size_y - 1) / 2.0
-    initial_c_x = xs - offset_x
-    initial_c_y = ys - offset_y
-    initial_a = np.tile(np.array(aperture_fluxes, dtype=np.float32),
-                        n_epochs)
-    model, kwargs_init, kwargs_up, kwargs_down, _ = setup_model(
-        data, noisemap**2, psf, initial_c_x, initial_c_y, s, initial_a,
-        device=device)
-    n_sources = model.n_sources
+        offset_x = (im_size_x - 1) / 2.0
+        offset_y = (im_size_y - 1) / 2.0
+        initial_c_x = xs - offset_x
+        initial_c_y = ys - offset_y
+        initial_a = np.tile(np.array(aperture_fluxes, dtype=np.float32),
+                            n_epochs)
+        model, kwargs_init, kwargs_up, kwargs_down, _ = setup_model(
+            data, noisemap**2, psf, initial_c_x, initial_c_y, s, initial_a,
+            device=device)
+        n_sources = model.n_sources
 
-    def t(x):
-        return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+        def t(x):
+            return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
 
-    angles = np.asarray(angles_to_north, dtype=np.float64)
-    kwargs_init["kwargs_analytic"]["alpha"] = t(angles - angles[0])
+        angles = np.asarray(angles_to_north, dtype=np.float64)
+        kwargs_init["kwargs_analytic"]["alpha"] = t(angles - angles[0])
 
-    fix_astrometry = config["fix_point_source_astrometry"]
-    prior = None
-    if isinstance(fix_astrometry, float):
-        sig = np.full(len(initial_c_x), fix_astrometry)
-        prior = Prior(prior_analytic=[["c_x", initial_c_x, sig],
-                                      ["c_y", initial_c_y, sig]])
-    if config.get("starting_background") is not None:
-        kwargs_init["kwargs_background"]["h"] = t(
-            np.asarray(config["starting_background"]).ravel() / scale)
-    reg = config.get("roi_model_regularization") or {}
+        fix_astrometry = config["fix_point_source_astrometry"]
+        prior = None
+        if isinstance(fix_astrometry, float):
+            sig = np.full(len(initial_c_x), fix_astrometry)
+            prior = Prior(prior_analytic=[["c_x", initial_c_x, sig],
+                                          ["c_y", initial_c_y, sig]])
+        if config.get("starting_background") is not None:
+            kwargs_init["kwargs_background"]["h"] = t(
+                np.asarray(config["starting_background"]).ravel() / scale)
+        reg = config.get("roi_model_regularization") or {}
 
-    data_t, noise_t = t(data), t(noisemap)
-    var_t = noise_t**2
+        data_t, noise_t = t(data), t(noisemap)
+        var_t = noise_t**2
 
-    mesh = resolve_mesh(mesh, _maybe_epoch_mesh)
-    n_pad, group, share = 0, None, None
-    sharded = {}
-    model_fit, data_fit, var_fit = model, data_t, var_t
-    if mesh is not None:
-        if tuple(mesh.mesh_dim_names or ()) != (EPOCH_AXIS,):
-            raise ValueError(f"fit_roi shards epochs over a 1-D "
-                             f"'{EPOCH_AXIS}' mesh, not "
-                             f"{mesh.mesh_dim_names}")
-        n_shards = axis_size(mesh, EPOCH_AXIS)
-        group, share = mesh.get_group(EPOCH_AXIS), CheckpointShare(mesh)
-        if mesh.size() > 1:
-            irfft_backend = "matmul"
-        data_p, var_p, psf_p, epoch_w = pad_epoch_stacks(
-            data, noisemap**2, np.asarray(psf, dtype=np.float32), n_shards)
-        n_pad = data_p.shape[0] - n_epochs
-        if n_pad:
-            model_fit = DeconvModel(t(psf_p), s, im_size_x,
-                                    n_epochs + n_pad, n_sources)
-            data_fit, var_fit = t(data_p), t(var_p)
-        sharded = dict(epoch_weights=epoch_w, group=group,
-                       epochs=epoch_range(mesh, n_epochs + n_pad))
-        logger.info(f"Epoch-sharding the joint fit over {n_shards} devices "
-                    f"({n_pad} zero-weight padding epochs).")
+        mesh = resolve_mesh(mesh, _maybe_epoch_mesh)
+        n_pad, group, share = 0, None, None
+        sharded = {}
+        model_fit, data_fit, var_fit = model, data_t, var_t
+        if mesh is not None:
+            if tuple(mesh.mesh_dim_names or ()) != (EPOCH_AXIS,):
+                raise ValueError(f"fit_roi shards epochs over a 1-D "
+                                 f"'{EPOCH_AXIS}' mesh, not "
+                                 f"{mesh.mesh_dim_names}")
+            n_shards = axis_size(mesh, EPOCH_AXIS)
+            group, share = mesh.get_group(EPOCH_AXIS), CheckpointShare(mesh)
+            if mesh.size() > 1:
+                irfft_backend = "matmul"
+            data_p, var_p, psf_p, epoch_w = pad_epoch_stacks(
+                data, noisemap**2, np.asarray(psf, dtype=np.float32), n_shards)
+            n_pad = data_p.shape[0] - n_epochs
+            if n_pad:
+                model_fit = DeconvModel(t(psf_p), s, im_size_x,
+                                        n_epochs + n_pad, n_sources)
+                data_fit, var_fit = t(data_p), t(var_p)
+            sharded = dict(epoch_weights=epoch_w, group=group,
+                           epochs=epoch_range(mesh, n_epochs + n_pad))
+            logger.info(f"Epoch-sharding the joint fit over {n_shards} "
+                        f"devices ({n_pad} zero-weight padding epochs).")
 
-    def padded(tree, fn, *counts):
-        if not n_pad:
-            return tree
-        return kwargs_from_numpy(fn(kwargs_to_numpy(tree), *counts,
-                                    n_sources), device)
+        def padded(tree, fn, *counts):
+            if not n_pad:
+                return tree
+            return kwargs_from_numpy(fn(kwargs_to_numpy(tree), *counts,
+                                        n_sources), device)
 
-    def run_fit(kwargs_start, kwargs_fixed, method, n_iter, loss_kwargs,
-                lr, schedule, checkpoint=None):
-        params = Params(
-            padded(kwargs_start, pad_epoch_kwargs, n_epochs, n_pad),
-            padded(kwargs_fixed, pad_epoch_kwargs, n_epochs, n_pad),
-            kwargs_up, kwargs_down)
-        loss = Loss(data_fit, model_fit, params, var_fit,
-                    irfft_backend=irfft_backend, **sharded, **loss_kwargs)
-        optim = Optimizer(loss, params, method=method)
-        optim.minimize(n_iter, init_learning_rate=lr,
-                       schedule_learning_rate=schedule,
-                       checkpoint_path=checkpoint,
-                       checkpoint_every=checkpoint_every,
-                       checkpoint_inputs_digest=checkpoint_inputs_digest,
-                       checkpoint_share=share)
-        return padded(params.best_fit_values(as_kwargs=True),
-                      strip_epoch_kwargs, n_epochs, n_pad), optim
+        def run_fit(kwargs_start, kwargs_fixed, method, n_iter, loss_kwargs,
+                    lr, schedule, checkpoint=None):
+            params = Params(
+                padded(kwargs_start, pad_epoch_kwargs, n_epochs, n_pad),
+                padded(kwargs_fixed, pad_epoch_kwargs, n_epochs, n_pad),
+                kwargs_up, kwargs_down)
+            loss = Loss(data_fit, model_fit, params, var_fit,
+                        irfft_backend=irfft_backend, **sharded, **loss_kwargs)
+            optim = Optimizer(loss, params, method=method)
+            optim.minimize(n_iter, init_learning_rate=lr,
+                           schedule_learning_rate=schedule,
+                           checkpoint_path=checkpoint,
+                           checkpoint_every=checkpoint_every,
+                           checkpoint_inputs_digest=checkpoint_inputs_digest,
+                           checkpoint_share=share)
+            return padded(params.best_fit_values(as_kwargs=True),
+                          strip_epoch_kwargs, n_epochs, n_pad), optim
 
-    # ---- stage 1: only dx, dy and fluxes free -------------------------
-    kwargs_fixed_1 = _copy_tree(kwargs_init)
-    for key in ("dx", "dy", "a"):
-        del kwargs_fixed_1["kwargs_analytic"][key]
-    kwargs_partial1, optim1 = run_fit(
-        kwargs_init, kwargs_fixed_1, "l-bfgs-b",
-        config["roi_deconv_translations_iters"],
-        dict(prior=prior,
-             regularization_strength_flux_uniformity=reg.get(
-                 "regularization_scatter_fluxes_pre_optim", 10.0)),
-        lr=1e-3, schedule=True)
+        # ---- stage 1: only dx, dy and fluxes free -------------------------
+        kwargs_fixed_1 = _copy_tree(kwargs_init)
+        for key in ("dx", "dy", "a"):
+            del kwargs_fixed_1["kwargs_analytic"][key]
+        with span("roi.stage1"):
+            kwargs_partial1, optim1 = run_fit(
+                kwargs_init, kwargs_fixed_1, "l-bfgs-b",
+                config["roi_deconv_translations_iters"],
+                dict(prior=prior,
+                     regularization_strength_flux_uniformity=reg.get(
+                         "regularization_scatter_fluxes_pre_optim", 10.0)),
+                lr=1e-3, schedule=True)
 
-    # ---- stage 2: everything relevant free -----------------------------
-    kwargs_fixed_2 = _copy_tree(kwargs_partial1)
-    if config["further_optimize_background"]:
-        del kwargs_fixed_2["kwargs_background"]["h"]
-    del kwargs_fixed_2["kwargs_background"]["mean"]
-    for key in ("a", "c_x", "c_y", "dx", "dy"):
-        del kwargs_fixed_2["kwargs_analytic"][key]
-    if isinstance(fix_astrometry, bool) and fix_astrometry:
-        kwargs_fixed_2["kwargs_analytic"]["c_x"] = t(initial_c_x)
-        kwargs_fixed_2["kwargs_analytic"]["c_y"] = t(initial_c_y)
+        # ---- stage 2: everything relevant free -----------------------------
+        kwargs_fixed_2 = _copy_tree(kwargs_partial1)
+        if config["further_optimize_background"]:
+            del kwargs_fixed_2["kwargs_background"]["h"]
+        del kwargs_fixed_2["kwargs_background"]["mean"]
+        for key in ("a", "c_x", "c_y", "dx", "dy"):
+            del kwargs_fixed_2["kwargs_analytic"][key]
+        if isinstance(fix_astrometry, bool) and fix_astrometry:
+            kwargs_fixed_2["kwargs_analytic"]["c_x"] = t(initial_c_x)
+            kwargs_fixed_2["kwargs_analytic"]["c_y"] = t(initial_c_y)
 
-    W = t(noise_weights) if noise_weights is not None else propagate_noise(
-        model, noise_t, None, num_samples=NOISE_SAMPLES, seed=NOISE_SEED,
-        irfft_backend=irfft_backend, group=group)[0]
+        with span("roi.noise_weights"):
+            W = t(noise_weights) if noise_weights is not None \
+                else propagate_noise(
+                    model, noise_t, None, num_samples=NOISE_SAMPLES,
+                    seed=NOISE_SEED, irfft_backend=irfft_backend,
+                    group=group)[0]
 
-    def run_stage2():
-        return run_fit(
-            kwargs_partial1, kwargs_fixed_2, "adabelief",
-            config["roi_deconv_all_iters"],
-            dict(regularization_terms="l1_starlet",
-                 regularization_strength_scales=reg.get(
-                     "regularization_strength_scales", 1.0),
-                 regularization_strength_hf=reg.get(
-                     "regularization_strength_hf", 1.0),
-                 regularization_strength_positivity=reg.get(
-                     "regularization_strength_positivity", 100.0),
-                 regularization_strength_pts_source=reg.get(
-                     "regularization_strength_pts_source", 0.01),
-                 regularization_strength_flux_uniformity=reg.get(
-                     "regularization_scatter_fluxes_main_optim", 10.0),
-                 W=W, prior=prior),
-            lr=1e-4, schedule=False, checkpoint=checkpoint_path)
+        def run_stage2():
+            return run_fit(
+                kwargs_partial1, kwargs_fixed_2, "adabelief",
+                config["roi_deconv_all_iters"],
+                dict(regularization_terms="l1_starlet",
+                     regularization_strength_scales=reg.get(
+                         "regularization_strength_scales", 1.0),
+                     regularization_strength_hf=reg.get(
+                         "regularization_strength_hf", 1.0),
+                     regularization_strength_positivity=reg.get(
+                         "regularization_strength_positivity", 100.0),
+                     regularization_strength_pts_source=reg.get(
+                         "regularization_strength_pts_source", 0.01),
+                     regularization_strength_flux_uniformity=reg.get(
+                         "regularization_scatter_fluxes_main_optim", 10.0),
+                     W=W, prior=prior),
+                lr=1e-4, schedule=False, checkpoint=checkpoint_path)
 
-    # a refused resume (changed inputs or budget under the same name)
-    # discards the file; on success it is deleted, so a stale file never
-    # replays a finished fit
-    kwargs_final, optim2 = run_discarding_stale_checkpoint(
-        run_stage2, checkpoint_path, logger)
-    if checkpoint_path is not None:
-        Path(checkpoint_path).unlink(missing_ok=True)
+        # a refused resume (changed inputs or budget under the same name)
+        # discards the file; on success it is deleted, so a stale file never
+        # replays a finished fit
+        with span("roi.stage2"):
+            kwargs_final, optim2 = run_discarding_stale_checkpoint(
+                run_stage2, checkpoint_path, logger)
+        if checkpoint_path is not None:
+            Path(checkpoint_path).unlink(missing_ok=True)
 
-    # ---- exact GLS flux polish, errors, per-frame chi2 -----------------
-    with torch.no_grad():
-        kwargs_final = linear_flux_solve(kwargs_final, data_t, var_t, model)
-        fluxes = kwargs_final["kwargs_analytic"]["a"].reshape(
-            n_epochs, n_sources) * scale
-        errors = get_flux_uncertainties(
-            kwargs_final, None, None, None, noise_t, model).reshape(
-                n_epochs, n_sources) * np.float32(scale)
-        residuals = data_t - model.model(kwargs_final)
-        chi2 = torch.nansum(residuals**2 / noise_t**2, dim=(1, 2)) \
-            / model.image_size**2
-    warn_if_unconverged(optim2.loss_history, logger, "ROI stage-2 joint fit",
-                        "roi_deconv_all_iters")
-    return {
-        "fluxes": fluxes.cpu().numpy(),
-        "flux_errors": errors,
-        "reduced_chi2": chi2.cpu().numpy(),
-        "residuals": (residuals * scale).cpu().numpy(),
-        "kwargs": kwargs_to_numpy(kwargs_final),
-        "model": model,
-        "scale": scale,
-        "W": W.cpu().numpy(),
-        "loss_history_stage1": optim1.loss_history,
-        "loss_history_stage2": optim2.loss_history,
-    }
+        # ---- exact GLS flux polish, errors, per-frame chi2 -------------
+        with span("roi.polish"), torch.no_grad():
+            kwargs_final = linear_flux_solve(kwargs_final, data_t, var_t,
+                                             model)
+            fluxes = kwargs_final["kwargs_analytic"]["a"].reshape(
+                n_epochs, n_sources) * scale
+            errors = get_flux_uncertainties(
+                kwargs_final, None, None, None, noise_t, model).reshape(
+                    n_epochs, n_sources) * np.float32(scale)
+            residuals = data_t - model.model(kwargs_final)
+            chi2 = torch.nansum(residuals**2 / noise_t**2, dim=(1, 2)) \
+                / model.image_size**2
+            results = {
+                "fluxes": fluxes.cpu().numpy(),
+                "flux_errors": errors,
+                "reduced_chi2": chi2.cpu().numpy(),
+                "residuals": (residuals * scale).cpu().numpy(),
+                "kwargs": kwargs_to_numpy(kwargs_final),
+                "model": model,
+                "scale": scale,
+                "W": W.cpu().numpy(),
+                "loss_history_stage1": optim1.loss_history,
+                "loss_history_stage2": optim2.loss_history,
+            }
+        warn_if_unconverged(optim2.loss_history, logger,
+                            "ROI stage-2 joint fit", "roi_deconv_all_iters")
+        return results
 
 
 def stage2_checkpoint_digest(user_config, reg, fix_astrometry, data,

@@ -41,17 +41,19 @@ device bodies under the pipeline's rank rule); "broadcast" times
 
 With ``--breakdown`` (one card) it fits ROI-1000 (matmul) at world 1 over
 NCCL unsharded and on an epoch mesh, in turns (unsharded, mesh, mesh,
-unsharded), and splits each wall on the host clock, synchronised at each
-edge: ``setup_model``, each stage's ``Optimizer.minimize`` (its loops'
-replays apart from its warm-up, capture and set-up), ``propagate_noise``,
-``linear_flux_solve``, and the rest of ``fit_roi``.
+unsharded), each fit under one ``torch.profiler`` window, and splits each
+wall by the program's spans (``utilities/tracing.py``): ``roi.fit``, its
+stages (``roi.stage1``, ``roi.noise_weights`` as the host issues it,
+``roi.stage2``, ``roi.polish``) and, inside each stage, its loop's
+``optimizer.warmup``, ``optimizer.drain`` and ``optimizer.capture``; a
+stage's replays are the rest of it. The profiler costs each traced fit
+some host time.
 """
 
 import argparse
 import os
 import subprocess
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -73,66 +75,59 @@ def one_ulp(np, data, seed):
     return np.nextafter(data, toward.astype(data.dtype))
 
 
-def breakdown(np, torch, c, card):
+def breakdown(torch, c, card):
     """``--breakdown``: ROI-1000 at world 1, unsharded and on an epoch
-    mesh, each wall split by the functions ``fit_roi`` calls."""
-    from lightcurver_tpu_torch.core import optimize
+    mesh, each fit under one profiler window and split by the program's
+    spans."""
     from lightcurver_tpu_torch.parallel.distributed import \
         initialize_distributed
     from lightcurver_tpu_torch.parallel.mesh import epoch_mesh
     from lightcurver_tpu_torch.processes import roi_modelling as rm
+    from lightcurver_tpu_torch.utilities import tracing
     from lightcurver_tpu_torch.utilities.synthetic import make_roi_scene
 
     import torch.distributed as dist
 
-    spans = []
-
-    def timed(owner, name):
-        fn = getattr(owner, name)
-
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.synchronize()
-                spans.append((name, time.perf_counter() - t0))
-
-        setattr(owner, name, wrapped)
-        return owner, name, fn
-
     scene = make_roi_scene(n_epochs=c.SURVEY_EPOCHS, n_pix=64, s=2,
                            n_sources=4)
-    patched = [timed(rm, "setup_model"), timed(rm, "propagate_noise"),
-               timed(rm, "linear_flux_solve"),
-               timed(optimize.Optimizer, "minimize")]
     initialize_distributed(f"localhost:{c.free_port()}", 1, 0)
     try:
         mesh = epoch_mesh()
         for label, m in (("unsharded", None), ("epoch mesh", mesh),
                          ("epoch mesh", mesh), ("unsharded", None)):
-            spans.clear()
-            with c.recorded_loops(torch, optimize, False) as log:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+            tracing.clear()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
                 c.fit_scene(rm.fit_roi, rm.ROI_CONFIG, scene, "cuda",
                             "matmul", mesh=m)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            replays = [e["seconds"] for e in log]
-            parts = ", ".join(f"{name} {t:.3f}" for name, t in spans)
             print(f"breakdown, ROI-1000 matmul, world 1 (NCCL), {label}: "
-                  f"{wall:.3f} s wall; {parts} s; the loops' replays "
-                  f"after warm-up and capture "
-                  f"{', '.join(f'{t:.3f}' for t in replays)} s; the rest "
-                  f"{wall - sum(t for _, t in spans):.3f} s (card {card})",
+                  f"{stage_walls(tracing.spans())} (card {card})",
                   flush=True)
     finally:
         dist.destroy_process_group()
-        for owner, name, fn in patched:
-            setattr(owner, name, fn)
     return 0
+
+
+def stage_walls(spans):
+    """One fit's spans as text: the fit's wall, each stage's and, inside
+    a stage, its loops' warm-up, drain and capture, in s."""
+    def wall(span):
+        return (span["end_ns"] - span["start_ns"]) * 1e-9
+
+    fit = next(s for s in spans if s["name"] == "roi.fit")
+    parts = []
+    stages = sorted((s for s in spans if s["parent"] == fit["id"]),
+                    key=lambda s: s["start_ns"])
+    for stage in stages:
+        loops = ", ".join(f"{s['name'].split('.')[1]} {wall(s):.3f}"
+                          for s in sorted(spans, key=lambda s: s["start_ns"])
+                          if s["parent"] == stage["id"]
+                          and s["name"].startswith("optimizer."))
+        parts.append(f"{stage['name']} {wall(stage):.3f}"
+                     + (f" ({loops})" if loops else ""))
+    rest = wall(fit) - sum(wall(s) for s in stages)
+    return (f"{wall(fit):.3f} s wall; {'; '.join(parts)}; the rest "
+            f"{rest:.3f} s")
 
 
 def main():
@@ -178,7 +173,7 @@ def main():
     # NCCL bootstraps over this host's loopback: one host
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     if args.breakdown:
-        return breakdown(np, torch, c, card)
+        return breakdown(torch, c, card)
     work = HERE / "build" / "chip_smoke" / "shard"
     if args.ranks is not None:
         names = tuple(args.fits.split(","))
