@@ -3045,8 +3045,11 @@ def recorded_loops(torch, optimize, force_eager):
     its steps after the first ``N_WARMUP + 1`` (the warm-up and the
     capture; CUDA-synchronised on the host clock) and its state at the
     end. ``force_eager`` calls every step without a graph, as a fit whose
-    loss all-reduces over gloo does. Yields the list of the loops'
-    records, in call order."""
+    loss all-reduces over gloo does. The batched PSF fit's plans are
+    cleared on entry and exit, so each fit builds and records its loops.
+    Yields the list of the loops' records, in call order."""
+    from lightcurver_tpu_torch.core.psf.batched import clear_plans
+
     base = optimize.StepLoop
     log = []
 
@@ -3073,11 +3076,13 @@ def recorded_loops(torch, optimize, force_eager):
                 state=[x.detach().cpu().numpy() for x in self.state])
             return self.state
 
+    clear_plans()
     optimize.StepLoop = Recorded
     try:
         yield log
     finally:
         optimize.StepLoop = base
+        clear_plans()
 
 
 def same_tree(np, a, b):

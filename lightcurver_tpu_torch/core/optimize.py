@@ -42,6 +42,12 @@ memory is rolled, oldest pair first, so its two-loop order is fixed.
   for each replay after the first. A step that cannot be captured raises;
   nothing falls back to calling it eagerly.
 
+A loop is built, warmed up and captured once a call, except for a
+:class:`KeptLoss` (the batched PSF fit's plans, ``core/psf/batched.py``):
+the batched optimizers keep its loop, and a later call of the same shapes
+and constants rewinds it to the new start in place
+(:meth:`StepLoop.rewind`) and replays the graph from its first step.
+
 What breaks a capture is a host round trip inside the step's loss: a read
 back (``.item()``, ``float(t)``, ``if t:``, ``.tolist()``, ``nonzero``, a
 boolean mask index), a copy from the host (``torch.tensor`` of data, an
@@ -217,6 +223,58 @@ class StepLoop:
         self.graph = graph
         graph.replay()
         self.replays += 1
+
+    def rewind(self, start):
+        """Restart the loop from ``start``, one tensor a state tensor,
+        copied into it in stream order: a captured graph reads and writes
+        the state's tensors, so they are never rebound. The graph and the
+        warm-up count are kept, so on the card every step of the next
+        :meth:`run` after a capture replays the graph. Returns the state."""
+        for static, value in zip(self.state, start, strict=True):
+            static.copy_(value)
+        return self.state
+
+
+class KeptLoss:
+    """A loss whose batched optimizer loop outlives the call.
+
+    :func:`run_lbfgsb_batched` and :func:`run_adabelief_batched` keep the
+    loop they build on a ``KeptLoss``. A later call with the same budget,
+    step constants and parameter shapes builds none: it copies its bounds
+    and its start into the kept loop's tensors (:meth:`StepLoop.rewind`)
+    and runs it, so on the card every step replays the graph the first
+    call captured. It returns the kept history tensor, which the next call
+    overwrites. Whatever else the loss reads, the caller changes by
+    writing into the tensors it closes over, never by rebinding them.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.kept = None    # (key, loop, value_and_grad, lo, hi, history)
+
+    def __call__(self, free):
+        return self.fn(free)
+
+
+def _batched_loop(loss_fn, key, x, spec, lower, upper, n_iter, build, start):
+    """``(loop, history)`` of one batched run from the flat start ``x``:
+    the loop a :class:`KeptLoss` kept for ``key``, given this call's
+    bounds and rewound to ``start(value_and_grad)``; else
+    ``build(value_and_grad, lo, hi, history)``, kept on a KeptLoss."""
+    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
+    kept = loss_fn.kept if isinstance(loss_fn, KeptLoss) else None
+    if kept is not None and kept[0] == key:
+        _, loop, value_and_grad, kept_lo, kept_hi, history = kept
+        kept_lo.copy_(lo)
+        kept_hi.copy_(hi)
+        loop.rewind(start(value_and_grad))
+        return loop, history
+    value_and_grad = _value_and_grad_batched(loss_fn, spec)
+    history = torch.empty(x.shape[0], n_iter, dtype=x.dtype, device=x.device)
+    loop = build(value_and_grad, lo, hi, history)
+    if isinstance(loss_fn, KeptLoss):
+        loss_fn.kept = (key, loop, value_and_grad, lo, hi, history)
+    return loop, history
 
 
 def _leaves(tree, path=()):
@@ -517,22 +575,31 @@ def run_adabelief_batched(loss_fn, free0, lower, upper, n_iter,
     :func:`run_adabelief_checkpointed` does (JAX's batched star fit,
     ``_fit_stars_checkpointed``); with no path nothing is written;
     ``checkpoint_share`` shares the file between the ranks of a mesh;
-    ``eager`` as :func:`run_adabelief`.
+    ``eager`` as :func:`run_adabelief`. A :class:`KeptLoss` keeps its
+    loop, and takes no checkpoint.
 
     Returns:
         (best_free, final_free, loss_history) with the history an (F,
         n_iter) tensor on the device of the parameters.
     """
+    if isinstance(loss_fn, KeptLoss) and checkpoint_path is not None:
+        # a resume rebinds the state's tensors, which a kept graph reads
+        raise ValueError("a KeptLoss's loop is not checkpointed")
     n_iter = int(n_iter)
     theta, spec = flatten_batched(free0)
     theta = theta.detach().clone()
-    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    history = torch.empty(theta.shape[0], n_iter, dtype=theta.dtype,
-                          device=theta.device)
-    loop = _adabelief_loop(
-        _value_and_grad_batched(loss_fn, spec),
-        _adabelief_carry(theta, theta.shape[0]), lo, hi, history, n_iter,
-        init_learning_rate, schedule_learning_rate, eager=eager)
+    n_frames = theta.shape[0]
+    loop, history = _batched_loop(
+        loss_fn, ("adabelief", n_iter, spec, theta.shape,
+                  float(init_learning_rate), bool(schedule_learning_rate),
+                  eager),
+        theta, spec, lower, upper, n_iter,
+        lambda value_and_grad, lo, hi, history: _adabelief_loop(
+            value_and_grad, _adabelief_carry(theta, n_frames), lo, hi,
+            history, n_iter, init_learning_rate, schedule_learning_rate,
+            eager=eager),
+        lambda value_and_grad: _adabelief_carry(theta, n_frames) + (
+            torch.zeros((), dtype=torch.int64, device=theta.device),))
     theta, _, _, best, _ = run_segments(
         loop, history, n_iter, checkpoint_path, checkpoint_every,
         inputs_digest, checkpoint_share)
@@ -709,16 +776,6 @@ def _lbfgs_loop(value_and_grad, x, lo, hi, history, exact_bounds, eager):
     Without it the pair at the unprojected step is carried, and an
     iteration costs the line search's evaluations (one more at the start).
     Each step writes its loss to ``history[:, it]``."""
-    n_frames, n_par = x.shape
-    memory = x.new_zeros(n_frames, LBFGS_MEMORY, n_par)
-    inf = torch.full((n_frames,), float("inf"), dtype=x.dtype,
-                     device=x.device)
-    if exact_bounds:
-        value, grad = inf.clone(), torch.zeros_like(x)
-    else:
-        value, grad = value_and_grad(x)
-    clipped = torch.zeros(n_frames, dtype=torch.bool, device=x.device)
-
     def step(state):
         (x, value, grad, clipped, prev_x, prev_g, dparams, dgrads, rhos,
          best, best_loss, it) = state
@@ -761,11 +818,27 @@ def _lbfgs_loop(value_and_grad, x, lo, hi, history, exact_bounds, eager):
         return (new_x, new_value, new_grad, (raw != new_x).any(-1), x, grad,
                 dparams, dgrads, rhos, best, best_loss, it + 1)
 
-    state = (x, value, grad, clipped, torch.zeros_like(x),
-             torch.zeros_like(x), memory, memory.clone(),
-             x.new_zeros(n_frames, LBFGS_MEMORY), x.clone(), inf.clone(),
-             torch.zeros((), dtype=torch.int64, device=x.device))
-    return StepLoop(step, state, eager=eager)
+    return StepLoop(step, _lbfgs_start(value_and_grad, x, exact_bounds),
+                    eager=eager)
+
+
+def _lbfgs_start(value_and_grad, x, exact_bounds):
+    """The state of :func:`_lbfgs_loop` at its start ``x`` (F, P): without
+    ``exact_bounds`` it holds the value and gradient at ``x``, else an
+    infinite value, which the first step replaces."""
+    n_frames, n_par = x.shape
+    memory = x.new_zeros(n_frames, LBFGS_MEMORY, n_par)
+    inf = torch.full((n_frames,), float("inf"), dtype=x.dtype,
+                     device=x.device)
+    if exact_bounds:
+        value, grad = inf.clone(), torch.zeros_like(x)
+    else:
+        value, grad = value_and_grad(x)
+    clipped = torch.zeros(n_frames, dtype=torch.bool, device=x.device)
+    return (x, value, grad, clipped, torch.zeros_like(x),
+            torch.zeros_like(x), memory, memory.clone(),
+            x.new_zeros(n_frames, LBFGS_MEMORY), x.clone(), inf.clone(),
+            torch.zeros((), dtype=torch.int64, device=x.device))
 
 
 def run_lbfgsb(loss_fn, free0, lower, upper, n_iter, *, eager=False):
@@ -804,14 +877,17 @@ def run_lbfgsb_batched(loss_fn, free0, lower, upper, n_iter, *,
     gradient at the unprojected step into the next iteration. Arguments
     and returns as :func:`run_adabelief_batched`. Each iteration costs
     :data:`LBFGS_LINESEARCH_STEPS` evaluations of all frames (one more at
-    the start).
+    the start). A :class:`KeptLoss` keeps its loop.
     """
     n_iter = int(n_iter)
     x, spec = flatten_batched(free0)
-    lo, hi = flatten_like(lower, spec), flatten_like(upper, spec)
-    history = torch.empty(x.shape[0], n_iter, dtype=x.dtype, device=x.device)
-    loop = _lbfgs_loop(_value_and_grad_batched(loss_fn, spec),
-                       x.detach().clone(), lo, hi, history, False, eager)
+    x = x.detach().clone()
+    loop, history = _batched_loop(
+        loss_fn, ("lbfgsb", n_iter, spec, x.shape, eager), x, spec, lower,
+        upper, n_iter,
+        lambda value_and_grad, lo, hi, history: _lbfgs_loop(
+            value_and_grad, x, lo, hi, history, False, eager),
+        lambda value_and_grad: _lbfgs_start(value_and_grad, x, False))
     loop.run(n_iter)
     x, best = loop.state[0], loop.state[9]
     return (unflatten_batched(best, spec), unflatten_batched(x, spec),

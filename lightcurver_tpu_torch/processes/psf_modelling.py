@@ -181,18 +181,22 @@ def _dispatch_fit_jobs(user_config, jobs, fetch="device", *, device="cuda",
     With ``fetch="device"`` the result is the fit's tensors on
     ``device``, whose kernels may still be queued: the caller collects
     them later (:func:`_collect_fit_results`), after queueing the next
-    bucket's work.
+    bucket's work. The ``psf.dispatch`` span's ``plan`` says whether the
+    fit found its shape's plan (``"hit"``) or built it (``"miss"``).
     """
-    from ..core.psf.batched import build_psf_batched
+    from ..core.psf.batched import build_psf_batched, plan_counts
 
-    with span("psf.dispatch", frames=len(jobs)):
-        return build_psf_batched(
+    with span("psf.dispatch", frames=len(jobs)) as attrs:
+        hits = plan_counts()["hits"]
+        out = build_psf_batched(
             subsampling_factor=user_config["subsampling_factor"],
             n_iter_analytic=user_config["psf_n_iter_analytic"],
             n_iter_adabelief=user_config["psf_n_iter_pixels"],
             field_distortion=user_config["field_distortion"], fetch=fetch,
             dft_pad=user_config.get("psf_dft_pad"), device=device,
             irfft_backend=irfft_backend, **_pad_fit_jobs(jobs))
+        attrs["plan"] = "hit" if plan_counts()["hits"] > hits else "miss"
+        return out
 
 
 def _collect_fit_results(out, jobs):

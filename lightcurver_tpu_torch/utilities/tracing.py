@@ -11,7 +11,9 @@ A span marks a layer boundary where the work happens:
 ``optimizer.warmup``       a loop's eager steps before its capture
 ``optimizer.drain``        the host waiting for work queued before a capture
 ``optimizer.capture``      one loop's CUDA graph capture
-``psf.dispatch``           one PSF bucket's dispatch, the root of its spans
+``psf.dispatch``           one PSF bucket's dispatch, the root of its spans;
+                           attr ``plan``: ``"hit"`` when the fit found its
+                           bucket shape's plan, ``"miss"`` when it built it
 ``pipeline.wait_prepare``  the bucket pipeline waiting for a preparation
 =========================  ================================================
 

@@ -8,7 +8,9 @@ it (a guard over the aten ops each step dispatches, through every fit's
 entry point), it runs exactly once an iteration with its counter on the
 device, a killed checkpointed run resumes to the uninterrupted bits, the
 graph driver's copy of a step's outputs survives their aliasing, and a
-replay adds the launches its capture recorded.
+replay adds the launches its capture recorded. On the card (``gpu``): the
+batched PSF fit's plan captures its loops once a bucket shape and replays
+them for the later buckets, to the same bits.
 """
 
 import numpy as np
@@ -18,7 +20,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from lightcurver_tpu_torch.core import optimize as topt
 from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
-from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
+from lightcurver_tpu_torch.core.psf.batched import (build_psf_batched,
+                                                    clear_plans)
 from lightcurver_tpu_torch.core.psf.build import build_psf
 from lightcurver_tpu_torch.ops import fused_render_cuda, starlet_cuda
 from lightcurver_tpu_torch.processes.roi_modelling import ROI_CONFIG, fit_roi
@@ -63,7 +66,10 @@ class NoHostRoundTrip(TorchDispatchMode):
 @pytest.fixture()
 def guarded(monkeypatch):
     """Every step of every loop runs under :class:`NoHostRoundTrip`;
-    yields the list of the loops (their final state and step count)."""
+    yields the list of the loops (their final state and step count). The
+    batched PSF fit's plans are cleared first, so its loops are built
+    here and not found in a plan of an earlier test."""
+    clear_plans()
     loops = []
     call = topt.StepLoop._call
 
@@ -260,3 +266,70 @@ def test_the_cpu_driver_calls_the_step():
         assert not loop.graphed
         assert loop.run(0) is loop.state
         assert float(loop.run(3)[0]) == 3.0 and loop.graph is None
+
+
+def _psf_jobs(data, sigma):
+    """One bucket of the PSF task's jobs (every pixel good)."""
+    return [{"frame": {"seeing_pixels": 3.0}, "data": d, "noisemap": n,
+             "masks": np.ones(d.shape, dtype=bool),
+             "stamp_coords": np.zeros((len(d), 2), dtype=np.float32)}
+            for d, n in zip(data, sigma)]
+
+
+@pytest.mark.gpu
+def test_psf_plan_on_the_card_captures_once_a_shape():
+    """Three buckets of one shape through the task's dispatch, under the
+    profiler: the first builds the plan and captures its two loops, the
+    other two replay them with no warm-up, drain or capture; each bucket
+    adds the same K1 launches; the third, the first's frames again,
+    gives the first's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and K1 have no CPU "
+                    "mode")
+    from lightcurver_tpu_torch.core.params import kwargs_to_numpy
+    from lightcurver_tpu_torch.processes.psf_modelling import \
+        _dispatch_fit_jobs
+    from lightcurver_tpu_torch.utilities import tracing
+    from lightcurver_tpu_torch.utilities.benchmarking import launch_counts
+
+    data, sigma = psf_bench_frames(6, 4, 24)
+    buckets = [_psf_jobs(data[:3], sigma[:3]), _psf_jobs(data[3:], sigma[3:])]
+    config = {"subsampling_factor": 2, "psf_n_iter_analytic": 20,
+              "psf_n_iter_pixels": 300, "field_distortion": False,
+              "psf_dft_pad": 16}
+    clear_plans()
+    tracing.clear()
+    outs, k1 = [], []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for jobs in (buckets[0], buckets[1], buckets[0]):
+            before = launch_counts()
+            outs.append(kwargs_to_numpy(_dispatch_fit_jobs(
+                config, jobs, device="cuda", irfft_backend="fft")))
+            k1.append(tuple(b - a for a, b in
+                            zip(before, launch_counts()))[:2])
+    spans = tracing.spans()
+    tracing.clear()
+    clear_plans()
+    dispatches = [s for s in spans if s["name"] == "psf.dispatch"]
+    assert [s["attrs"]["plan"] for s in dispatches] == ["miss", "hit", "hit"]
+    loops = {"optimizer.warmup", "optimizer.drain", "optimizer.capture"}
+    for dispatch in dispatches:
+        inside = [s["name"] for s in spans if s["root"] == dispatch["id"]
+                  and s["name"] in loops]
+        if dispatch["attrs"]["plan"] == "hit":
+            assert inside == [], inside
+        else:
+            assert inside.count("optimizer.capture") == 2, inside
+    assert sum(s["name"] == "optimizer.capture" for s in spans) == 2
+    assert k1[0] == k1[1] == k1[2] and k1[0][0] > 0, k1
+    assert outs[0].keys() == outs[2].keys()
+    for key in outs[0]:
+        for a, b in zip(_leaves_of(outs[0][key]), _leaves_of(outs[2][key])):
+            np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    return [np.asarray(tree)]

@@ -50,7 +50,8 @@ def main():
     sys.path.insert(0, str(REPO))
     from lightcurver_tpu_torch.core import optimize
     from lightcurver_tpu_torch.core.deconv.batched import fit_stars_batched
-    from lightcurver_tpu_torch.core.psf.batched import build_psf_batched
+    from lightcurver_tpu_torch.core.psf.batched import (build_psf_batched,
+                                                        clear_plans)
     from lightcurver_tpu_torch.ops import (cuda_build, enforce_fp32,
                                            fused_render_cuda, starlet_cuda)
     from lightcurver_tpu_torch.processes.roi_modelling import (ROI_CONFIG,
@@ -102,6 +103,7 @@ def main():
                   torch.profiler.ProfilerActivity.CUDA]
 
     def run(cell, driver):
+        clear_plans()    # a PSF plan would replay the other driver's loops
         optimize.StepLoop = Eager if driver == "eager" else base
         try:
             torch.cuda.synchronize()
