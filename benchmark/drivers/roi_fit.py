@@ -6,7 +6,10 @@ plans, the allocator grows; every fit captures its own CUDA graphs
 anyway). The window then calls ``fit_roi`` back to back, fit ``i`` on the
 scene plus noise drawn from (seed, i), each with its results fetched to
 the host as the ROI task takes them, until the window's seconds are
-spent; the window ends with the last fit.
+spent; the window ends with the last fit. On several cards every rank calls
+``fit_roi(mesh="auto")`` on the same data, each fitting its share of the
+epochs, and every rank stops after the fit that rank 0 says ends the
+window.
 """
 
 import sys
@@ -59,8 +62,11 @@ class Driver:
         self.fit(roi_fit_input(self.scene, WARM_UP), roi_config(
             self.cfg, warm["translations_iters"], warm["all_iters"]))
 
-    def window(self, seconds, tracer=None):
-        """Fits until ``seconds`` have passed; (fits, window seconds)."""
+    def window(self, seconds, tracer=None, agree=lambda done: done):
+        """Fits until ``seconds`` have passed; (fits, window seconds).
+        ``agree`` makes this process's verdict after each fit the one that
+        every rank follows: on several cards, rank 0's (``World.agree``),
+        so that each fit's collectives meet on every rank."""
         config = roi_config(self.cfg)
         t0 = time.perf_counter()
         i = 0
@@ -77,18 +83,20 @@ class Driver:
             if tracer:
                 tracer.end(i)
             i += 1
-            if time.perf_counter() - t0 >= seconds:
+            if agree(time.perf_counter() - t0 >= seconds):
                 break
         print("fit seconds: " + " ".join(f"{t:.4f}" for t in self.fit_s[-i:]),
               file=sys.stderr)
         return i, end - t0
 
     def trace_shapes(self):
-        """Shapes the kernel metrics need: K2's."""
+        """Shapes the kernel metrics need: K2's on one rank, whose share
+        of the epochs (padded as the sharded fit pads them) is the epochs
+        over the ranks, rounded up."""
         cfg = self.cfg
         n, s = cfg["stamp_size_ROI"], cfg["subsampling_factor"]
         L = 2 * n * s
-        return {"k2": dict(N=cfg["epochs"],
+        return {"k2": dict(N=-(-cfg["epochs"] // int(self.cell["chips"])),
                            C=2 * len(cfg["scene"]["source_x"]), L=L,
                            Lh=L // 2 + 1, n=n)}
 

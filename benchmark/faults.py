@@ -10,7 +10,10 @@ restores it:
   fit's losses leave out the second half of a bucket's frames and count
   the first half twice;
 - ``answer``: the ROI fluxes are altered by 1e-3 where the GLS polish
-  produces them, and the full PSFs where the PSF model renders them.
+  produces them, and the full PSFs where the PSF model renders them;
+- ``exchange``: on several ranks, a sharded loss is this rank's own terms,
+  with no all-reduce between the ranks (``sum_over_group`` returns the
+  local sum, with its local gradient).
 """
 
 import contextlib
@@ -86,4 +89,14 @@ def answer():
                 patched(model.PSFModel, "full_psf", full_psf))
 
 
-FAULTS = {"noop": noop, "half": half, "answer": answer}
+def exchange():
+    from lightcurver_tpu_torch.core.deconv import batched, loss
+
+    def local(original):
+        return lambda fn, tree, group: fn(tree)
+    return both(patched(loss, "sum_over_group", local),
+                patched(batched, "sum_over_group", local))
+
+
+FAULTS = {"noop": noop, "half": half, "answer": answer,
+          "exchange": exchange}

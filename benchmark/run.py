@@ -19,6 +19,12 @@ window's answers against the plain reference, and prints one JSON line;
 with ``--trace 1`` the first units of the window run under
 ``torch.profiler`` and the line carries the per-layer metrics instead of
 the end-to-end ones.
+
+A cell of N > 1 cards runs as N ranks, one a card (``benchmark/ranks.py``):
+the process started becomes the launcher, every rank runs the set-up and
+the same units until rank 0 says the window is over, rank 0 alone traces,
+judges and prints the line (``device.count`` N, the fullest card's peak),
+and the launcher prints it as its own.
 """
 
 import time
@@ -73,13 +79,19 @@ def benchmark_metrics(workload, trace):
 
 
 def run_cell(workload, seed, seconds, trace, *, device="cuda", cell=None,
-             config=None, traffic=None, judge="program", record=None):
+             config=None, traffic=None, judge="program", record=None,
+             world=None, t_start=T_START):
     """One run of a cell; returns the result line's dict, with ``checks``
     last. ``cell``, ``config`` and ``traffic`` default to the files of
     ``workload``; tests pass smaller ones. ``judge="control"`` puts the
     control (the reference in TF32) in the program's place: its answers
     are judged, and the run has to come out not correct. Each answer's
-    readings (both sides' numbers) are appended to ``record`` if given."""
+    readings (both sides' numbers) are appended to ``record`` if given.
+
+    ``world``: this rank's ``ranks.World`` in a cell of several cards.
+    Every rank sets up and runs the window's units until rank 0 says it is
+    over; rank 0 alone traces, judges and returns the line, the others
+    return None. ``t_start``: where ``setup_s`` counts from."""
     import torch
 
     from benchmark.tracewindow import Tracer
@@ -94,15 +106,32 @@ def run_cell(workload, seed, seconds, trace, *, device="cuda", cell=None,
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
-    setup_s = time.time() - T_START
-    tracer = Tracer(traffic["trace_units"]) if trace else None
-    units, window_s = driver.window(seconds, tracer)
+    if world is not None:
+        world.barrier()
+    setup_s = time.time() - t_start
+    lead = world is None or world.rank == 0
+    tracer = Tracer(traffic["trace_units"]) if trace and lead else None
+    if world is None:
+        units, window_s = driver.window(seconds, tracer)
+    else:
+        units, window_s = driver.window(seconds, tracer, world.agree)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:
         torch.cuda.empty_cache()
     forbidden = loaded_forbidden()
     if forbidden:
         raise SystemExit(f"the JAX stack was loaded: {forbidden}")
+    if world is not None:
+        counts, peaks = zip(*world.gather((units, int(peak))))
+        if lead:
+            print(f"ranks' units {list(counts)}, peak bytes {list(peaks)}",
+                  file=sys.stderr)
+        if len(set(counts)) != 1:
+            raise SystemExit(f"the ranks ran different numbers of units: "
+                             f"{list(counts)}")
+        peak = max(peaks)
+        if not lead:
+            return None
     precision = {"program": "float64", "control": "tf32"}[judge]
     numbers = {}   # the worst of each number over the answers judged
     for index in driver.sample():
@@ -127,7 +156,8 @@ def run_cell(workload, seed, seconds, trace, *, device="cuda", cell=None,
                    for k in unit if k in values}
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name() if cuda else "cpu",
-                   "count": 1, "memory_peak_bytes": int(peak)}
+                   "count": 1 if world is None else world.size,
+                   "memory_peak_bytes": int(peak)}
     result = {"correct": correct, "attempted": units, "failed": 0,
               "metrics": metrics, "device": device_info}
     if trace:
@@ -151,7 +181,37 @@ def run_cell(workload, seed, seconds, trace, *, device="cuda", cell=None,
     return result
 
 
+def report(result):
+    """Print a run's checks on standard error, last, and its line."""
+    forbidden = loaded_forbidden()
+    if forbidden:
+        sys.exit(f"the JAX stack was loaded: {forbidden}")
+    for name, check in result["checks"].items():
+        print(f"check {name}: {check['value']!r} (limit {check['limit']!r})",
+              file=sys.stderr)
+    print(json.dumps(result), flush=True)
+
+
+def run_ranked(workload, seed, seconds, trace, **kwargs):
+    """This rank's part of a cell of several cards: ``run_cell`` in the
+    world, rank 0's report, and the teardown. An exception leaves without
+    the teardown: the launcher ends the other ranks."""
+    from benchmark.ranks import World, launcher_start
+
+    world = World()
+    cell = kwargs.get("cell") or load_json("workloads", workload)
+    if world.size != int(cell["chips"]):
+        sys.exit(f"{workload} asks for {cell['chips']} ranks; the world "
+                 f"has {world.size}")
+    result = run_cell(workload, seed, seconds, trace, world=world,
+                      t_start=launcher_start(), **kwargs)
+    if result is not None:
+        report(result)
+    world.close()
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--workload", required=True)
     parser.add_argument("--seed", type=int, required=True)
@@ -164,23 +224,24 @@ def main(argv=None):
     os.environ["TRITON_CACHE_DIR"] = str(ROOT / "build" / "triton_cache")
     import torch
 
+    from benchmark import ranks
+
     cell = load_json("workloads", args.workload)
     chips = int(cell["chips"])
-    if chips != 1:
-        sys.exit(f"{args.workload} asks for {chips} cards: this harness "
-                 "runs cells of one card")
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         sys.exit(f"{args.workload} needs {chips} CUDA card(s); "
                  f"{torch.cuda.device_count()} visible")
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), cell=cell)
-    forbidden = loaded_forbidden()
-    if forbidden:
-        sys.exit(f"the JAX stack was loaded: {forbidden}")
-    for name, check in result["checks"].items():
-        print(f"check {name}: {check['value']!r} (limit {check['limit']!r})",
-              file=sys.stderr)
-    print(json.dumps(result))
+    run = (args.workload, args.seed, args.seconds, bool(args.trace))
+    if chips == 1:
+        report(run_cell(*run, cell=cell))
+    elif ranks.launched():
+        run_ranked(*run, cell=cell)
+    else:
+        code, out = ranks.launch(chips, [__file__, *argv], t_start=T_START)
+        forbidden = loaded_forbidden()
+        if code or forbidden:
+            sys.exit(code or f"the JAX stack was loaded: {forbidden}")
+        sys.stdout.write(out)
 
 
 if __name__ == "__main__":
